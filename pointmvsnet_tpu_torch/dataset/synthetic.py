@@ -1,0 +1,120 @@
+"""In-memory synthetic MVS scenes: the port's numpy-only copy of
+``pointmvsnet_tpu/dataset/synthetic.py :: make_scene_batch``.
+
+Two textured fronto-parallel half-planes seen by cameras translated along
+x, so the true depth is known and plane-sweep stereo can recover it. The
+JAX package renders with cv2 (cubic texture upsampling, ``warpAffine``);
+here the texture is bilinearly upsampled and each view is an exact
+x-translation with bilinear taps and a zero border, in numpy. The pixels
+therefore differ from the JAX package's; the geometry (cameras, depths,
+disparities) is the same.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pointmvsnet_tpu_torch.dataset.preprocess import norm_image
+
+
+def _upsample_bilinear(small: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(h', w', C) → (h, w, C), pixel-center aligned, edges clamped."""
+    sh, sw = small.shape[:2]
+
+    def taps(n_out, n_in):
+        t = np.clip((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0, n_in - 1)
+        i0 = np.floor(t).astype(np.int64)
+        i1 = np.minimum(i0 + 1, n_in - 1)
+        return i0, i1, (t - i0).astype(np.float32)
+
+    y0, y1, fy = taps(h, sh)
+    x0, x1, fx = taps(w, sw)
+    rows = (small[y0] * (1 - fy)[:, None, None]
+            + small[y1] * fy[:, None, None])
+    return rows[:, x0] * (1 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]
+
+
+def _texture(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """Smooth random RGB texture with enough gradient for photometric cost."""
+    small = rng.rand(h // 8 + 2, w // 8 + 2, 3).astype(np.float32)
+    tex = _upsample_bilinear(small, h, w)
+    tex += 0.25 * rng.rand(h, w, 3).astype(np.float32)
+    tex -= tex.min()
+    tex /= max(tex.max(), 1e-6)
+    return (tex * 255).astype(np.uint8)
+
+
+def _shift_x(img: np.ndarray, shift: float) -> np.ndarray:
+    """out[y, x] = img[y, x − shift], bilinear in x, zero outside."""
+    w = img.shape[1]
+    src = np.arange(w, dtype=np.float64) - shift
+    x0 = np.floor(src).astype(np.int64)
+    fx = (src - x0).astype(np.float32)
+    out = np.zeros(img.shape, np.float32)
+    for xi, wt in ((x0, 1 - fx), (x0 + 1, fx)):
+        ok = (xi >= 0) & (xi < w)
+        out[:, ok] += img[:, xi[ok]].astype(np.float32) * wt[ok][None, :, None]
+    return out
+
+
+def _make_cams(num_views: int, height: int, width: int, depth_min: float,
+               depth_interval: float, num_depth: int):
+    """Cam 0 at the origin looking +z, view v translated along x.
+    → (cams list, focal f, baseline)."""
+    f = 1.2 * max(height, width)
+    K = np.array([[f, 0, width / 2.0], [0, f, height / 2.0], [0, 0, 1]],
+                 np.float64)
+    baseline = depth_min * 0.012
+    cams = []
+    for v in range(num_views):
+        E = np.eye(4)
+        E[0, 3] = -v * baseline
+        cam = np.zeros((2, 4, 4), np.float32)
+        cam[0] = E
+        cam[1, :3, :3] = K
+        cam[1, 3] = [depth_min, depth_interval, num_depth,
+                     depth_min + (num_depth - 1) * depth_interval]
+        cams.append(cam)
+    return cams, f, baseline
+
+
+def _render_two_planes(v, f, baseline, height, width, d_lo, d_hi,
+                       tex_l, tex_r) -> np.ndarray:
+    """View v of the two textured half-planes (float RGB in [0, 255])."""
+    img = np.zeros((height, width, 3), np.float32)
+    split = width // 2
+    for tex, d, x0, x1 in [(tex_l, d_lo, 0, split), (tex_r, d_hi, split, width)]:
+        disp = f * (v * baseline) / d
+        mask = np.zeros((height, width, 1), np.float32)
+        mask[:, x0:x1] = 1
+        warped = _shift_x(tex, -disp)
+        wm = _shift_x(mask, -disp)[..., 0] > 0
+        img[wm] = warped[wm]
+    return img
+
+
+def make_scene_batch(batch: int, num_views: int, height: int, width: int,
+                     num_depth: int, depth_min: float = 425.0,
+                     depth_interval: float = 2.5, seed: int = 0):
+    """→ (images (B, V, H, W, 3) float32 standardized per image,
+    cams (B, V, 2, 4, 4) float32, gt_depth (B, H, W) float32)."""
+    cams, f, baseline = _make_cams(num_views, height, width, depth_min,
+                                   depth_interval, num_depth)
+    d_lo = depth_min + 0.25 * (num_depth - 1) * depth_interval
+    d_hi = depth_min + 0.70 * (num_depth - 1) * depth_interval
+    split = width // 2
+
+    images = np.zeros((batch, num_views, height, width, 3), np.float32)
+    gt = np.zeros((batch, height, width), np.float32)
+    for b in range(batch):
+        rng = np.random.RandomState(seed + b)
+        tex_l = _texture(rng, height, width)
+        tex_r = _texture(rng, height, width)
+        for v in range(num_views):
+            img = _render_two_planes(v, f, baseline, height, width,
+                                     d_lo, d_hi, tex_l, tex_r)
+            images[b, v] = norm_image(img)
+        gt[b] = d_lo
+        gt[b, :, split:] = d_hi
+    cam_batch = np.broadcast_to(np.stack(cams), (batch, num_views, 2, 4, 4))
+    return images, np.ascontiguousarray(cam_batch, np.float32), gt

@@ -1,0 +1,89 @@
+"""Model registry and ``build_model``: counterpart of
+``pointmvsnet_tpu/models/__init__.py``.
+
+``build_model`` rejects the JAX package's TPU-only knobs when they are set
+away from a value whose meaning the port implements, instead of quietly
+reinterpreting them. The loss and metrics wait for the training slice, so
+the build functions return the model alone.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from pointmvsnet_tpu_torch import resolve_device
+from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
+from pointmvsnet_tpu_torch.models.image_conv import ImageConv
+from pointmvsnet_tpu_torch.models.pointmvsnet import PointFlow, PointMVSNet
+from pointmvsnet_tpu_torch.models.volume_conv import VolumeConv
+
+MODEL_REGISTRY: Dict[str, Callable] = {}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# MODEL.<key> → the values the port implements. "auto" fetch is per-level
+# bilinear and "auto" moments are on, which is what the port runs.
+_ACCEPTED = {
+    "KNN_IMPL": ("auto",),
+    "FLOW_FETCH": ("auto", "bilinear"),
+    "COARSE_FETCH": ("mxu",),
+    "FLOW_MOMENTS": ("auto", "on", True),
+    "FLOW_SRC_DTYPE": ("",),
+    "REMAT": (False,),
+    "FLOW_CHUNK_ROWS": (-1, 0),
+}
+
+
+def check_model_knobs(cfg) -> None:
+    for key, ok in _ACCEPTED.items():
+        val = cfg.MODEL[key]
+        if not any(val == o and type(val) is type(o) for o in ok):
+            raise ValueError(
+                f"MODEL.{key}={val!r} selects a TPU engine of the JAX package; "
+                f"the port implements {ok}")
+
+
+def register_model(name: str):
+    def deco(fn):
+        MODEL_REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+@register_model("pointmvsnet")
+def build_pointmvsnet(cfg) -> PointMVSNet:
+    check_model_knobs(cfg)
+    return PointMVSNet(
+        img_base_channels=cfg.MODEL.IMG_BASE_CHANNELS,
+        vol_base_channels=cfg.MODEL.VOL_BASE_CHANNELS,
+        edge_channels=tuple(cfg.MODEL.EDGE_CHANNELS),
+        flow_channels=tuple(cfg.MODEL.FLOW_CHANNELS),
+        flow_m=cfg.MODEL.FLOW_INTERVAL_M,
+        knn=cfg.MODEL.KNN,
+        knn_window=cfg.MODEL.KNN_WINDOW,
+        norm=cfg.MODEL.NORM,
+        dtype=_DTYPES[cfg.MODEL.DTYPE],
+    )
+
+
+@register_model("mvsnet")
+def build_mvsnet(cfg) -> PointMVSNet:
+    """Coarse-only family: the same model, run with ``is_flow=False``."""
+    return build_pointmvsnet(cfg)
+
+
+def build_model(cfg, device="cuda") -> PointMVSNet:
+    """cfg → the model on ``device`` (CUDA unless the caller asks for the
+    CPU; raises without a GPU), in eval mode."""
+    dev = resolve_device(device)
+    name = cfg.MODEL.NAME
+    if name not in MODEL_REGISTRY:
+        raise KeyError(f"Unknown MODEL.NAME {name!r}; have {sorted(MODEL_REGISTRY)}")
+    return MODEL_REGISTRY[name](cfg).to(dev).eval()
+
+
+__all__ = ["PointMVSNet", "PointFlow", "ImageConv", "VolumeConv", "EdgeConv",
+           "build_model", "build_pointmvsnet", "build_mvsnet", "MODEL_REGISTRY",
+           "register_model", "check_model_knobs"]

@@ -1,0 +1,128 @@
+"""Conv / deconv / per-point MLP blocks with BatchNorm, GroupNorm or no norm:
+counterpart of ``pointmvsnet_tpu/models/blocks.py``.
+
+Parameters stay float32 and are cast to the block's compute ``dtype`` in
+``forward``, as flax's ``dtype=`` does. Convs pad k//2 on both sides;
+deconvs are ``ConvTranspose(k, s, padding=k//2, output_padding=s-1)``. BN
+uses eps 1e-5 and (eval mode) its running statistics; GN uses
+gcd(8, C) groups. Norm arithmetic runs in f32 and its output is cast back
+to the compute dtype. The convs run NCHW / NCDHW; ``SharedMLP`` takes
+channels-last (B, N, C).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+_BN = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
+
+
+def make_norm(norm: str, channels: int, rank: int = 1) -> nn.Module | None:
+    if norm == "bn":
+        return _BN[rank](channels, eps=1e-5)
+    if norm == "gn":
+        return nn.GroupNorm(math.gcd(8, channels), channels, eps=1e-5)
+    if norm == "none":
+        return None
+    raise ValueError(f"Unknown norm {norm!r}")
+
+
+def apply_norm(layer: nn.Module | None, x: torch.Tensor) -> torch.Tensor:
+    """Channels at dim 1. BN takes a low-precision input with f32 stats
+    directly (its arithmetic is f32); GN is run on an f32 copy."""
+    if layer is None:
+        return x
+    if isinstance(layer, nn.GroupNorm):
+        return layer(x.float()).to(x.dtype)
+    return layer(x)
+
+
+class ConvBlock(nn.Module):
+    """2-D or 3-D conv (+norm)(+relu) over (B, C, *spatial)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
+                 norm: str = "bn", relu: bool = True, rank: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        conv = {2: nn.Conv2d, 3: nn.Conv3d}[rank]
+        self.conv = conv(cin, cout, kernel_size, stride, padding=kernel_size // 2,
+                         bias=norm == "none")
+        self.norm = make_norm(norm, cout, rank)
+        self.relu = relu
+        self.dtype = dtype
+        self._fn = {2: F.conv2d, 3: F.conv3d}[rank]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.conv
+        bias = None if c.bias is None else c.bias.to(self.dtype)
+        x = self._fn(x.to(self.dtype), c.weight.to(self.dtype), bias,
+                     c.stride, c.padding)
+        x = apply_norm(self.norm, x)
+        return F.relu(x) if self.relu else x
+
+
+class DeconvBlock(nn.Module):
+    """3-D transposed conv (+norm)(+relu) over (B, C, D, H, W)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 2,
+                 norm: str = "bn", relu: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = nn.ConvTranspose3d(cin, cout, kernel_size, stride,
+                                       padding=kernel_size // 2,
+                                       output_padding=stride - 1,
+                                       bias=norm == "none")
+        self.norm = make_norm(norm, cout, 3)
+        self.relu = relu
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.conv
+        bias = None if c.bias is None else c.bias.to(self.dtype)
+        x = F.conv_transpose3d(x.to(self.dtype), c.weight.to(self.dtype), bias,
+                               c.stride, c.padding, c.output_padding)
+        x = apply_norm(self.norm, x)
+        return F.relu(x) if self.relu else x
+
+
+class _Dense(nn.Module):
+    def __init__(self, cin: int, cout: int, norm: str):
+        super().__init__()
+        self.linear = nn.Linear(cin, cout, bias=norm == "none")
+        self.norm = make_norm(norm, cout, 1)
+
+
+class SharedMLP(nn.Module):
+    """Per-point MLP over channels-last (B, N, C): Linear (+norm)(+relu) per
+    layer; the last layer's norm and relu follow ``last_norm`` /
+    ``last_relu``."""
+
+    def __init__(self, cin: int, features: Sequence[int], norm: str = "bn",
+                 last_relu: bool = True, last_norm: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        n = len(features)
+        chans = [cin, *features]
+        self.layers = nn.ModuleList(
+            _Dense(chans[i], chans[i + 1],
+                   norm if (last_norm or i < n - 1) else "none")
+            for i in range(n))
+        self.last_relu = last_relu
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            lin = layer.linear
+            bias = None if lin.bias is None else lin.bias.to(self.dtype)
+            x = F.linear(x.to(self.dtype), lin.weight.to(self.dtype), bias)
+            if layer.norm is not None:
+                x = apply_norm(layer.norm, x.transpose(1, 2)).transpose(1, 2)
+            if self.last_relu or i < n - 1:
+                x = F.relu(x)
+        return x

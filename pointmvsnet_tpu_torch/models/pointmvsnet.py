@@ -1,0 +1,231 @@
+"""Point-MVSNet eval forward: coarse plane sweep + iterative PointFlow.
+Counterpart of ``pointmvsnet_tpu/models/pointmvsnet.py`` (``scale_cams``,
+``hypothesis_points``, ``PointFlowCore``, ``PointFlow``, ``PointMVSNet``).
+
+Input images are resized by ``coarse_img_scale`` for the coarse stage,
+whose features come out at 1/4 of that, so the coarse depth map is 1/8 of
+the input. Each flow iteration at ``img_scales[i]`` upsamples the previous
+depth and refines it by the expected residual over 2m+1 hypotheses per
+pixel, ``inter_scales[i]`` depth intervals apart along the viewing ray.
+
+PointFlow runs unbanded: the JAX package's row bands fit the TPU's VMEM,
+while the full-resolution map fits the card whole. Only the eval forward
+is ported; the model raises in training mode.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from pointmvsnet_tpu_torch.models.blocks import SharedMLP
+from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
+from pointmvsnet_tpu_torch.models.image_conv import ImageConv
+from pointmvsnet_tpu_torch.models.volume_conv import VolumeConv
+from pointmvsnet_tpu_torch.ops.cost_volume import (
+    depth_regression,
+    photometric_confidence,
+    plane_sweep_volume,
+)
+from pointmvsnet_tpu_torch.ops.geometry import (
+    cam_depth_range,
+    cam_extrinsics,
+    cam_intrinsics,
+    depth_hypotheses,
+    pixel_grid,
+    unproject_pixels,
+)
+from pointmvsnet_tpu_torch.ops.knn import window_knn_mask
+from pointmvsnet_tpu_torch.ops.sampling import (
+    fetch_features_perlevel,
+    regular_grid_sample,
+)
+
+
+def scale_cams(cams: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
+    """Scale the intrinsics rows of cams (..., 2, 4, 4) for an image resize."""
+    out = cams.clone()
+    out[..., 1, 0, :3] *= sx
+    out[..., 1, 1, :3] *= sy
+    return out
+
+
+def _resize_views(images: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, V, H, W, C) → (B, V, h, w, C), bilinear with antialiasing, which
+    equals ``jax.image.resize(method="bilinear")``. Computed in f32 and
+    cast back to the input's dtype: PyTorch's CPU backend has no bf16
+    antialiased resize, and one code path serves both devices."""
+    b, v, hh, ww, c = images.shape
+    x = images.reshape(b * v, hh, ww, c).permute(0, 3, 1, 2).float()
+    x = F.interpolate(x, (h, w), mode="bilinear", align_corners=False,
+                      antialias=True)
+    return x.permute(0, 2, 3, 1).reshape(b, v, h, w, c).to(images.dtype)
+
+
+def hypothesis_points(cur_depth: torch.Tensor, step: torch.Tensor, m: int,
+                      ref_cam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cur_depth (B, h, w) → (pts (B, G·N, 3) g-major, hyp_depth (B, G, N)),
+    G = 2m+1 hypotheses ``step`` apart along the reference viewing ray."""
+    b, h, w = cur_depth.shape
+    g = 2 * m + 1
+    n = h * w
+    offsets = torch.arange(g, dtype=cur_depth.dtype, device=cur_depth.device) - m
+    hyp_depth = cur_depth.reshape(b, 1, n) + offsets[None, :, None] * step[:, None, None]
+    pix = pixel_grid(h, w, device=cur_depth.device)
+    pts = unproject_pixels(pix[None, None], hyp_depth,
+                           cam_extrinsics(ref_cam)[:, None],
+                           cam_intrinsics(ref_cam)[:, None])      # (B, G, N, 3)
+    return pts.reshape(b, g * n, 3), hyp_depth
+
+
+class PointFlow(nn.Module):
+    """One PointFlow refinement over the whole depth map (the JAX package's
+    ``PointFlowCore``, run unbanded): hypothesis points → multi-view
+    variance features → windowed kNN → EdgeConvs → per-hypothesis
+    probabilities → expected residual. Weights are shared across the flow
+    iterations."""
+
+    def __init__(self, in_channels: int, edge_channels: Sequence[int] = (32, 32, 64),
+                 flow_channels: Sequence[int] = (64, 64, 16, 1), m: int = 2,
+                 k: int = 16, window: int = 5, norm: str = "bn",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        chans = [in_channels, *edge_channels]
+        self.edge_convs = nn.ModuleList(
+            EdgeConv(chans[i], chans[i + 1], norm, dtype=dtype)
+            for i in range(len(edge_channels)))
+        self.head = SharedMLP(sum(edge_channels), flow_channels, norm,
+                              last_relu=False, last_norm=False, dtype=dtype)
+        self.m, self.k, self.window = m, k, window
+
+    def forward(self, levels: List[torch.Tensor], cams_levels: List[torch.Tensor],
+                ref_cam: torch.Tensor, cur_depth: torch.Tensor,
+                step: torch.Tensor) -> torch.Tensor:
+        """levels [(B, V, h_l, w_l, C_l)] channels-last; cams_levels
+        [(B, V, 2, 4, 4)] at each level's resolution; ref_cam (B, 2, 4, 4)
+        at the flow resolution; cur_depth (B, h, w); step (B,) → refined
+        depth (B, h, w)."""
+        b, h, w = cur_depth.shape
+        g = 2 * self.m + 1
+        n = h * w
+        offsets = torch.arange(g, dtype=cur_depth.dtype, device=cur_depth.device) - self.m
+        x, hyp_depth = hypothesis_points(cur_depth, step, self.m, ref_cam)
+
+        # the reference view projects every hypothesis back onto its scaled
+        # pixel grid: one regular-grid resample shared by the G hypotheses
+        # (masked where the depth is non-positive); only the V−1 source
+        # views need point gathers
+        nv = levels[0].shape[1]
+        ref_valid = (hyp_depth > 0).reshape(b, g, n)[..., None]
+        ref_parts = []
+        for fmap in levels:
+            rh, rw = fmap.shape[2], fmap.shape[3]
+            ref_s = regular_grid_sample(fmap[:, 0], rw / w, rh / h, h, w)
+            ref_parts.append(torch.where(ref_valid, ref_s[:, None], 0.0)
+                             .reshape(b, g * n, -1))
+        ref_all = torch.cat(ref_parts, dim=-1)                  # (B, G·N, ΣC)
+        s1, s2 = fetch_features_perlevel([f[:, 1:] for f in levels], x,
+                                         cams_levels[0][:, 1:])
+        mean = (ref_all + s1) / nv
+        sq_mean = (ref_all.square() + s2) / nv
+        point_feat = sq_mean - mean.square()
+
+        idx, mask = window_knn_mask(x.float().contiguous(), (g, h, w),
+                                    self.k, self.window)
+        edge_outs = []
+        y = point_feat
+        for ec in self.edge_convs:
+            y = ec(y, idx, mask=mask, grid_shape=(g, h, w), window=self.window)
+            edge_outs.append(y)
+        logits = self.head(torch.cat(edge_outs, dim=-1))        # (B, G·N, 1)
+        prob = torch.softmax(logits.reshape(b, g, n), dim=1)
+        residual = torch.einsum("bgn,g->bn", prob.float(), offsets) * step[:, None]
+        return cur_depth + residual.reshape(b, h, w)
+
+
+class PointMVSNet(nn.Module):
+    """The full model (eval). ``forward`` takes images (B, V, H, W, 3)
+    normalized and cams (B, V, 2, 4, 4) at image resolution, view 0 the
+    reference, and returns the JAX package's prediction dict."""
+
+    def __init__(self, img_base_channels: int = 8, vol_base_channels: int = 8,
+                 edge_channels: Sequence[int] = (32, 32, 64),
+                 flow_channels: Sequence[int] = (64, 64, 16, 1),
+                 flow_m: int = 2, knn: int = 16, knn_window: int = 5,
+                 norm: str = "bn", coarse_img_scale: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = img_base_channels
+        self.img_conv = ImageConv(c, norm, dtype)
+        self.vol_conv = VolumeConv(vol_base_channels, 4 * c, norm, dtype)
+        self.point_flow = PointFlow(7 * c, edge_channels, flow_channels, flow_m,
+                                    knn, knn_window, norm, dtype)
+        self.coarse_img_scale = coarse_img_scale
+        self.dtype = dtype
+
+    def _pyramid(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The shared 2-D CNN over all views folded into the batch."""
+        b, v = images.shape[:2]
+        out = self.img_conv(images.reshape(b * v, *images.shape[2:]))
+        return {k: f.reshape(b, v, *f.shape[1:]) for k, f in out.items()}
+
+    def forward(self, images: torch.Tensor, cams: torch.Tensor,
+                is_flow: bool = True,
+                img_scales: Sequence[float] = (0.25, 0.5),
+                inter_scales: Sequence[float] = (0.75, 0.375),
+                num_virtual_plane: int = 48) -> Dict[str, torch.Tensor]:
+        if self.training:
+            raise RuntimeError("only the eval forward is ported: call .eval()")
+        b, v, height, width, _ = images.shape
+        if height % 64 or width % 64:
+            raise ValueError(
+                f"input {height}x{width} must be divisible by 64 (coarse "
+                f"stage 1/8 + 3-level volume U-Net); crop_mvs_input(base=64) "
+                f"produces compliant shapes")
+        if num_virtual_plane % 8:
+            raise ValueError(f"num_virtual_plane={num_virtual_plane} must be "
+                             f"divisible by 8 (volume U-Net strides)")
+        images = images.to(self.dtype)
+        cams = cams.float()
+
+        # ---------------- coarse stage -----------------------------------
+        ch = int(height * self.coarse_img_scale)
+        cw = int(width * self.coarse_img_scale)
+        # kept: an eval flow iteration at the coarse scale reuses it
+        coarse_pyr = self._pyramid(_resize_views(images, ch, cw))
+        feats = coarse_pyr["conv2"]                              # (B, V, fh, fw, C)
+        fh, fw = feats.shape[2], feats.shape[3]
+        cams_feat = scale_cams(cams, fw / width, fh / height)
+        d_min, d_int, _, _ = cam_depth_range(cams[:, 0])
+        depths = depth_hypotheses(d_min, d_int, num_virtual_plane)
+        cost = plane_sweep_volume(feats, cams_feat, depths)
+        logits = self.vol_conv(cost)[..., 0]                     # (B, D, fh, fw)
+        prob = torch.softmax(logits.float(), dim=1)
+        cur = depth_regression(prob, depths)
+        preds: Dict[str, torch.Tensor] = {
+            "coarse_depth_map": cur,
+            "coarse_prob_map": photometric_confidence(prob),
+        }
+        if not is_flow:
+            return preds
+
+        # ---------------- PointFlow iterations ---------------------------
+        for it, (s, inter_s) in enumerate(zip(img_scales, inter_scales)):
+            th, tw = int(height * s), int(width * s)
+            if (th, tw) == (ch, cw):
+                pyr = coarse_pyr
+            else:
+                pyr = self._pyramid(_resize_views(images, th, tw))
+            levels = [pyr["conv0"], pyr["conv1"], pyr["conv2"]]
+            cams_levels = [scale_cams(cams, lvl.shape[3] / width, lvl.shape[2] / height)
+                           for lvl in levels]
+            ref_cam = scale_cams(cams[:, 0], tw / width, th / height)
+            cur = F.interpolate(cur[:, None], (th, tw), mode="bilinear",
+                                align_corners=False)[:, 0]
+            preds[f"flow{it + 1}_input"] = cur
+            cur = self.point_flow(levels, cams_levels, ref_cam, cur, d_int * inter_s)
+            preds[f"flow{it + 1}"] = cur
+        return preds

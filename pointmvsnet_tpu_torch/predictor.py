@@ -1,0 +1,60 @@
+"""Serving front end: counterpart of ``pointmvsnet_tpu/predictor.py``.
+
+    pred = Predictor(cfg)                    # CUDA; device="cpu" to opt out
+    out = pred(images, cams)                 # numpy in → numpy out
+    out["depth"], out["confidence"]
+
+Same host-side preprocessing as the JAX package (stride-64 center crop,
+per-image standardization). With no ``state_dict`` the weights are drawn
+from ``cfg.RNG_SEED`` (``utils.convert.init_params``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from pointmvsnet_tpu_torch.dataset.preprocess import crop_mvs_input, norm_image
+from pointmvsnet_tpu_torch.models import build_model
+from pointmvsnet_tpu_torch.utils.convert import init_params
+
+
+class Predictor:
+    def __init__(self, cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 device="cuda", normalize: bool = True):
+        self.cfg = cfg
+        self.normalize = normalize
+        self.model = build_model(cfg, device)
+        self.device = next(self.model.parameters()).device
+        if state_dict is None:
+            state_dict = init_params(self.model,
+                                     torch.Generator().manual_seed(cfg.RNG_SEED))
+        self.model.load_state_dict(state_dict)
+        self.kwargs = dict(
+            is_flow=cfg.MODEL.NAME != "mvsnet",
+            img_scales=tuple(cfg.MODEL.TEST.IMG_SCALES),
+            inter_scales=tuple(cfg.MODEL.TEST.INTER_SCALES),
+            num_virtual_plane=cfg.DATA.TEST.NUM_VIRTUAL_PLANE,
+        )
+
+    def __call__(self, images: np.ndarray, cams: np.ndarray) -> Dict[str, np.ndarray]:
+        """images (V, H, W, 3) float or uint8; cams (V, 2, 4, 4) → dict with
+        ``depth`` (h, w), ``confidence`` (hc, wc) and every raw stage."""
+        images = np.asarray(images, np.float32)
+        cams = np.asarray(cams, np.float32)
+        imgs, cms = crop_mvs_input(list(images), list(cams),
+                                   images.shape[1], images.shape[2], base=64)
+        if self.normalize:
+            imgs = [norm_image(im) for im in imgs]
+        batch_imgs = torch.from_numpy(np.stack(imgs)[None]).to(self.device)
+        batch_cams = torch.from_numpy(np.stack(cms)[None]).to(self.device)
+        with torch.inference_mode():
+            preds = self.model(batch_imgs, batch_cams, **self.kwargs)
+            preds = {k: v[0].float().cpu().numpy() for k, v in preds.items()}
+        flow_keys = sorted(k for k in preds
+                           if k.startswith("flow") and not k.endswith("_input"))
+        preds["depth"] = preds[flow_keys[-1] if flow_keys else "coarse_depth_map"]
+        preds["confidence"] = preds["coarse_prob_map"]
+        return preds
