@@ -6,30 +6,52 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. env     torch / CUDA versions, card name and power limit; TF32 off for
            the f32 phases.
-2. build   nvcc builds both kernels from csrc/, in parallel.
-3. kernels each CUDA kernel against its plain PyTorch version on the card,
-           at every shape the paper-eval forward gives it: windowed kNN
-           (idx and mask bit-equal) and masked window max (bit-equal, bf16
-           and f32); the kernel's device time (torch.profiler), the plain
-           version's time (CUDA events), and the bound of the same work.
-4. parity  the port at 64×128, V=3, D=16, f32: card (kernels) against the
+2. build   nvcc builds the three kernels from csrc/, in parallel.
+3. kernels each CUDA kernel of the model against its plain PyTorch version
+           on the card, at every shape the paper-eval forward gives it:
+           windowed kNN (idx and mask bit-equal) and masked window max
+           (bit-equal, bf16 and f32); the kernel's device time
+           (torch.profiler), the plain version's time (CUDA events), and
+           the bound of the same work.
+4. gather  the probe's windowed row gather (csrc/window_gather.cu) against
+           its plain version, bit-equal, at the probe's default shape and
+           at one whose rows fill the upper slab and the padded last
+           window; kernel, plain, torch.index_select and bound times; then
+           the probe's own entry point.
+5. parity  the port at 64×128, V=3, D=16, f32: card (kernels) against the
            CPU (plain versions), same seeded weights; depth bars of
            tests/test_full_parity.py.
-5. serve   Predictor at the paper-eval config (640×512, V=5, D=96, bf16,
+6. serve   Predictor at the paper-eval config (640×512, V=5, D=96, bf16,
            BatchNorm eval, 3 PointFlow iterations) answers 3 requests on a
            synthetic scene; each must launch exactly 3 kNN and 9 masked-max
            kernels and return finite maps; one more request runs under
            the profiler (device busy share, top kernels).
+7. train   train() at the reference training config (640×512, V=3, D=48,
+           B=4, BatchNorm, f32, flows at 0.25 / 0.5) on a synthetic DTU
+           tree written by the port: 2 coarse-only and 2 flow steps with
+           validation, a checkpoint, and a resume to 6 steps; kernel
+           launches per flow step and validation batch; steady step time,
+           peak memory and the device-busy share of one profiled step.
+8. train-parity  EdgeConv's train-mode backward on a fixed kNN graph,
+           card against CPU; then one train step at 64×128, V=3, D=16, B=2,
+           f32, seeded weights and noisy images, coarse-only and with both
+           flows, the kNN fed the same points on both sides: card against CPU,
+           losses, every gradient and the BN running statistics, with the
+           bars set out in phase_train_parity.
 
-Then a JSON line of per-kernel numbers, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Then a JSON line of per-kernel numbers (``launches`` per serving request),
+the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -176,6 +198,61 @@ def phase_kernels(dev):
     return tot
 
 
+def phase_gather(dev):
+    """The probe's windowed row gather: kernel against plain version at the
+    probe's default shape (table 328,833 × 128 f32, N = 327,680, SPAN =
+    2048) and at a shape whose rows sit in the upper slab and in the padded
+    last window; times against torch.index_select and the bound; then the
+    probe's entry point."""
+    from pointmvsnet_tpu_torch.benchmarks import pallas_gather_probe as probe
+    from pointmvsnet_tpu_torch.ops import window_gather as wg
+
+    n, width, span = 512 * 640, 128, 2048
+    table_np, idx_np = probe.make_inputs(probe.TABLE_ROWS, n, width)
+    table = torch.from_numpy(table_np).to(dev)
+    idx = torch.from_numpy(idx_np).to(dev)
+    idx_l = idx.long()
+    table_p, q, rel = wg.prepare(table, idx, span)
+    out = wg.window_gather_cuda(table_p, q, rel, span)
+    torch.cuda.synchronize()
+    ref = wg.window_gather_plain(table_p, q, rel, span)
+    check(torch.equal(out, ref), "window_gather: kernel != plain at the probe's shape")
+    check(torch.equal(out, table.index_select(0, idx_l)), "window_gather: != table[idx]")
+    err = float((out - ref).abs().max())
+
+    rows = probe.TABLE_ROWS
+    gen = np.random.RandomState(3)
+    idx2 = torch.from_numpy(np.concatenate([
+        np.arange(span - 1, span - 1 + 512),              # q 0: all but one row upper
+        rows - 1 - gen.randint(0, 600, 512)]).astype(np.int32)).to(dev)
+    t2, q2, rel2 = wg.prepare(table, idx2, span)
+    check(int((rel2 >= span).sum()) >= 511, "window_gather edge case: no upper-slab rows")
+    out2 = wg.window_gather_cuda(t2, q2, rel2, span)
+    torch.cuda.synchronize()
+    check(torch.equal(out2, wg.window_gather_plain(t2, q2, rel2, span))
+          and torch.equal(out2, table.index_select(0, idx2.long())),
+          "window_gather: kernel != plain on the upper slab / last window")
+
+    ms, how = device_ms(lambda: wg.window_gather_cuda(table_p, q, rel, span),
+                        "window_gather_kernel")
+    pms = time_ms(lambda: wg.window_gather_plain(table_p, q, rel, span), reps=10)
+    lms = time_ms(lambda: table.index_select(0, idx_l), reps=10)
+    # the rows this run's indices need (each read once), the output, rel, q
+    rows_needed = int(torch.unique(idx).numel())
+    nbytes = (rows_needed + n) * width * 4 + n * 4 + q.numel() * 4
+    bb, by = bound_ms(nbytes, 0)
+    print(f"gather: window_gather N={n} W={width} SPAN={span} table {tuple(table.shape)}: "
+          f"bit-equal (and on the upper-slab / last-window case); kernel {ms:.4f} ms "
+          f"({how}), plain {pms:.3f} ms, index_select {lms:.4f} ms, bound {bb:.4f} ms "
+          f"({by}, {nbytes / 1e6:.1f} MB: {rows_needed} distinct rows in, {n} out)",
+          flush=True)
+    g0 = wg.launches
+    res = probe.run(n, width, span)
+    check(all(r["exact"] for r in res.values()), f"probe entry point: {res}")
+    return dict(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bb, by=by, err=err,
+                probe_launches=wg.launches - g0)
+
+
 def phase_parity():
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
@@ -241,25 +318,261 @@ def phase_serve():
     print(f"serve: 640x512 V={v} D={d} bf16, 3 flows: latency ms {latencies}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    launches = knn.launches, edge.launches
-    profile_request(pred, images[0], cams[0])
-    return launches
+    profile_call(lambda: pred(images[0], cams[0]), "request")
+    return nk, ne                     # one request's launches (checked equal for all)
 
 
-def profile_request(pred, images, cams, top: int = 12):
-    """One more request under torch.profiler: device busy time (the sum of
-    the GPU kernels and copies), its share of the request's wall time, and
-    the operators whose kernels take most of it."""
+def _train_step_once(dev, kw, batch, sd, knn_hook=None):
+    """One train step of the default-width model (f32, unmasked loss) from
+    the state_dict ``sd`` on ``dev``; ``knn_hook`` wraps the model's kNN.
+    → (losses, grads, BN statistics), on the CPU."""
+    import pointmvsnet_tpu_torch.models.pointmvsnet as pmodel
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.models import build_loss_fn, build_model
+    from pointmvsnet_tpu_torch.parallel import TrainState, make_train_step, put_batch
+    from pointmvsnet_tpu_torch.utils.solver import build_optimizer
+
+    cfg = get_default_cfg()
+    cfg.MODEL.NUM_VIRTUAL_PLANE = kw["num_virtual_plane"]
+    cfg.MODEL.MASKED_LOSS = False
+    model = build_model(cfg, dev)
+    model.load_state_dict(sd)
+    state = TrainState(model, build_optimizer(cfg, dict(model.named_parameters())))
+    orig = pmodel.window_knn_idx
+    pmodel.window_knn_idx = knn_hook(orig) if knn_hook else orig
+    try:
+        state, losses = make_train_step(build_loss_fn(cfg), kw)(state, put_batch(batch, dev))
+    finally:
+        pmodel.window_knn_idx = orig
+    check(state.optimizer.count == 1, f"train step on {dev} skipped its update")
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+             for n, p in model.named_parameters()}
+    stats = {n: b.cpu() for n, b in model.named_buffers() if "running" in n}
+    return {k: float(v) for k, v in losses.items()}, grads, stats
+
+
+def phase_edge_conv_backward():
+    """Train-mode EdgeConv (the checkpointed gather path) on a fixed kNN
+    graph, card against CPU, at the CPU test's two cases and at the
+    default widths' first and last EdgeConv: gradients of the kernel, the
+    BN scale and bias and the input within 1e-4 of their max |g|, outputs
+    atol 1e-4, running statistics atol 1e-5 (the bars of
+    tests/test_torch_train.py::test_edge_conv_train_gradients)."""
+    from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
+    from pointmvsnet_tpu_torch.ops.knn import window_knn
+
+    report = []
+    for seed, c, f in [(4, 6, 8), (5, 16, 32), (6, 56, 32), (7, 32, 64)]:
+        rng = np.random.RandomState(seed)
+        g, h, w = 5, 6, 8
+        idx = window_knn(torch.from_numpy(rng.rand(2, g * h * w, 3).astype(np.float32)),
+                         (g, h, w), K)
+        x = torch.from_numpy(rng.randn(2, g * h * w, c).astype(np.float32))
+        cot = torch.from_numpy(rng.randn(2, g * h * w, f).astype(np.float32))
+        torch.manual_seed(seed)
+        ref = EdgeConv(c, f, "bn")
+        res = {}
+        for dev in ("cpu", "cuda"):
+            m = EdgeConv(c, f, "bn").to(dev)
+            m.load_state_dict(ref.state_dict())
+            m.train()
+            xd = x.to(dev, copy=True).requires_grad_()
+            out = m(xd, idx.to(dev))
+            (out * cot.to(dev)).sum().backward()
+            res[dev] = dict(out=out.detach().cpu(), x=xd.grad.cpu(),
+                            **{n: p.grad.cpu() for n, p in m.named_parameters()},
+                            **{n: b.cpu() for n, b in m.named_buffers() if "running" in n})
+        cpu, card = res["cpu"], res["cuda"]
+        worst = 0.0
+        for k, v in cpu.items():
+            d = float((card[k] - v).abs().max())
+            if k == "out":
+                check(d <= 1e-4, f"edge-conv backward C={c} F={f}: output max |Δ| {d:.3e}")
+            elif "running" in k:
+                check(d <= 1e-5, f"edge-conv backward C={c} F={f}: {k} max |Δ| {d:.3e}")
+            else:
+                rel = d / float(v.abs().max())
+                check(rel <= 1e-4, f"edge-conv backward C={c} F={f}: grad {k} {rel:.3e} of max |g|")
+                worst = max(worst, rel)
+        report.append(f"C={c} F={f} {worst:.1e}")
+    print(f"train-parity: EdgeConv train-mode backward, fixed kNN graph, card vs cpu: "
+          f"gradients within 1e-4 of their max |g| (largest: {'; '.join(report)})", flush=True)
+
+
+def phase_train_parity():
+    """One train step of the default-width model, card against CPU,
+    coarse-only and with both flows. The card's kNN kernel gets the CPU
+    step's kNN input points (on the synthetic lattice a kNN near-tie flips
+    under the two devices' ~1e-4 depth differences; the kernel is
+    bit-equal to the plain version given the same points). Images with
+    seeded noise (σ = 3) as in tests/test_torch_train_step.py; losses rtol
+    1e-4, BN statistics atol 1e-5, each gradient within 1e-4 of its max |g|
+    in the coarse-only step. With the flows on, f32 differences flip
+    near-tied maxima of EdgeConv's max over K, and each flip sends a
+    gradient to another neighbour: on the CPU alone, images × (1 + 1e-6)
+    move this config's gradients by up to 13% of their max |g|. There the
+    bar is 0.5 of max |g|, which a zeroed or sign-flipped gradient fails;
+    EdgeConv's backward itself is held at 1e-4 by
+    ``phase_edge_conv_backward``."""
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
+    from pointmvsnet_tpu_torch.models import build_model
+    from pointmvsnet_tpu_torch.utils.convert import init_params
+
+    images, cams, gt = make_scene_batch(2, 3, 64, 128, 16, seed=5)
+    images = (images + 3.0 * np.random.RandomState(7).randn(*images.shape)).astype(np.float32)
+    batch = {"images": images, "cams": cams, "gt_depth": gt[..., None]}
+    cfg = get_default_cfg()
+    sd = init_params(build_model(cfg, "cpu"), torch.Generator().manual_seed(0))
+    n_head = len(cfg.MODEL.FLOW_CHANNELS)
+    shift_invariant = ("vol_conv.convs.7.conv.bias",
+                       f"point_flow.head.layers.{n_head - 1}.linear.bias")
+    for is_flow in (False, True):
+        kw = dict(is_flow=is_flow, img_scales=(0.25, 0.5), inter_scales=(0.75, 0.375),
+                  num_virtual_plane=16)
+        points = []
+
+        def record(orig):
+            def knn(pts, *args):
+                points.append(pts.clone())
+                return orig(pts, *args)
+            return knn
+
+        def replay(orig):
+            return lambda pts, *args: orig(points.pop(0).to(pts.device), *args)
+
+        cpu = _train_step_once("cpu", kw, batch, sd, record)
+        check(len(points) == (2 if is_flow else 0), f"{len(points)} kNN calls on the CPU")
+        card = _train_step_once("cuda", kw, batch, sd, replay)
+        check(not points, "the card step did not run its kNN")
+        for k, v in cpu[0].items():
+            check(np.isfinite(card[0][k]) and abs(card[0][k] - v) <= 1e-4 * abs(v),
+                  f"train-parity loss {k}: card {card[0][k]} cpu {v}")
+        largest = max(float(g.abs().max()) for g in cpu[1].values())
+        rel = 0.5 if is_flow else 1e-4
+        gaps = []
+        for name, g in cpu[1].items():
+            tg = card[1][name]
+            if name in shift_invariant:
+                check(max(float(g.abs().max()), float(tg.abs().max())) < 1e-5 * largest,
+                      f"train-parity {name}: not ~0")
+                continue
+            # parameters no output uses have zero gradients on both sides
+            gap = float((tg - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            check(gap <= rel, f"train-parity grad {name}: max |Δg| {gap:.3e} of max |g|")
+            gaps.append((gap, name))
+        gaps.sort(reverse=True)
+        sdiff = max(float((card[2][n] - v).abs().max()) for n, v in cpu[2].items())
+        check(sdiff <= 1e-5, f"train-parity BN statistics: max |Δ| {sdiff:.3e}")
+        print(f"train-parity: {'flows on' if is_flow else 'coarse-only'} step at 64x128 "
+              f"V=3 D=16 B=2 f32, card vs cpu: losses "
+              f"{ {k: round(v, 6) for k, v in card[0].items() if k.endswith('loss')} }; "
+              f"{len(cpu[1])} gradients within {rel:g} of their max |g| (largest "
+              f"{', '.join(f'{n} {v:.2e}' for v, n in gaps[:3])}; "
+              f"{sum(v > 1e-4 for v, _ in gaps)} above 1e-4); "
+              f"BN statistics max |Δ| {sdiff:.2e}", flush=True)
+
+
+def phase_train(dev):
+    """train() at the reference training config on a synthetic DTU tree
+    written by the port, then a resume; launches, step time, memory and a
+    profiled step. → {kernel: launches per flow step / per val batch}."""
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.dataset.build import build_data_loader
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
+    from pointmvsnet_tpu_torch.models import build_loss_fn, pointmvsnet_metrics
+    from pointmvsnet_tpu_torch.ops import edge, knn
+    from pointmvsnet_tpu_torch.parallel import make_eval_step, make_train_step, put_batch
+    from pointmvsnet_tpu_torch.train import train
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cfg = get_default_cfg()
+        h, w, d = 512, 640, cfg.DATA.TRAIN.NUM_VIRTUAL_PLANE
+        t0 = time.perf_counter()
+        make_synthetic_dtu(os.path.join(work, "dtu"), scans=[2, 3, 5], num_views=3,
+                           height=h, width=w, num_depth=d)
+        print(f"train: synthetic DTU tree {w}x{h}, scans 2 (train) 3 5 (val), 3 views, "
+              f"7 lights, in {time.perf_counter() - t0:.1f} s", flush=True)
+        for split in ("TRAIN", "VAL"):
+            cfg.DATA[split].ROOT_DIR = os.path.join(work, "dtu")
+        cfg.SCHEDULER.INIT_EPOCH = 1
+        cfg.SCHEDULER.MAX_EPOCH = 2
+        out = os.path.join(work, "out")
+        b = cfg.TRAIN.BATCH_SIZE
+        n_flow = len(cfg.MODEL.TRAIN.IMG_SCALES)
+        n_edge = len(cfg.MODEL.EDGE_CHANNELS)
+        # epoch 0 coarse-only; epoch 1: 2 flow steps + 1 flow val batch
+        want = (2 * n_flow + n_flow, n_edge * n_flow)
+        for max_epoch, steps in ((2, 4), (3, 6)):
+            cfg.SCHEDULER.MAX_EPOCH = max_epoch
+            knn.launches = edge.launches = 0
+            t0 = time.perf_counter()
+            state = train(cfg, out, max_steps_per_epoch=2, device="cuda")
+            torch.cuda.synchronize()
+            got = (knn.launches, edge.launches)
+            check(state.step == steps, f"train: step counter {state.step}, want {steps}")
+            check(state.optimizer.skipped_steps == 0, "train: skipped a non-finite step")
+            check(got == want, f"train: launches kNN/masked-max {got}, want {want}")
+            ckpts = sorted(os.listdir(os.path.join(out, "checkpoints")))
+            check(f"{max_epoch - 1}.pt" in ckpts, f"train: checkpoints {ckpts}")
+            check(all(torch.isfinite(p).all() for p in state.model.parameters()),
+                  "train: non-finite parameters")
+            print(f"train: MAX_EPOCH={max_epoch} B={b}: step counter {state.step}, "
+                  f"checkpoints {ckpts}, launches kNN {got[0]} masked-max {got[1]}, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        kw = dict(is_flow=True, img_scales=tuple(cfg.MODEL.TRAIN.IMG_SCALES),
+                  inter_scales=tuple(cfg.MODEL.TRAIN.INTER_SCALES),
+                  num_virtual_plane=cfg.MODEL.NUM_VIRTUAL_PLANE)
+        loss_fn = build_loss_fn(cfg)
+        step = make_train_step(loss_fn, kw)
+        batch = put_batch(next(iter(build_data_loader(cfg, "train"))), torch.device("cuda"))
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            k0, e0 = knn.launches, edge.launches
+            t0 = time.perf_counter()
+            state, losses = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = (knn.launches - k0, edge.launches - e0)
+            check(got == (n_flow, 0), f"train step launches kNN/masked-max {got}")
+            check(all(np.isfinite(float(v)) for v in losses.values()), f"losses {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        k0, e0 = knn.launches, edge.launches
+        _, vlosses, _ = make_eval_step(loss_fn, pointmvsnet_metrics, kw)(state, batch)
+        torch.cuda.synchronize()
+        vgot = (knn.launches - k0, edge.launches - e0)
+        check(vgot == (n_flow, n_edge * n_flow), f"val batch launches {vgot}")
+        print(f"train: flow step {w}x{h} V=3 D={d} B={b} f32: step ms {[round(t, 1) for t in times]}"
+              f", max_memory_allocated {peak:.2f} GiB, launches per step kNN {n_flow} "
+              f"masked-max 0, per val batch kNN {vgot[0]} masked-max {vgot[1]}; losses "
+              f"{ {k: round(float(v), 4) for k, v in losses.items() if k.endswith('loss')} }",
+              flush=True)
+        profile_call(lambda: step(state, batch), f"train step (B={b})")
+        return {"window_knn": (n_flow, vgot[0]), "masked_window_max": (0, vgot[1])}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def profile_call(fn, what: str, top: int = 12):
+    """One more call of ``fn`` under torch.profiler: device busy time (the
+    sum of the GPU kernels and copies), its share of the call's wall time,
+    and the operators whose kernels take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred(images, cams)
+        fn()
+        torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
     on_gpu = [e for e in avgs if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_gpu) / 1e3
-    print(f"profile: request under the profiler {wall:.1f} ms wall, device busy "
+    print(f"profile: {what} under the profiler {wall:.1f} ms wall, device busy "
           f"{busy:.1f} ms ({100 * busy / wall:.1f}%) in {sum(e.count for e in on_gpu)} "
           f"kernels and copies", flush=True)
     ops = sorted((e for e in avgs if e.device_type != DeviceType.CUDA
@@ -297,8 +610,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     tot = phase_kernels(dev)
+    gat = phase_gather(dev)
     phase_parity()
     n_knn, n_mwm = phase_serve()
+    per_train = phase_train(dev)
+    phase_edge_conv_backward()
+    phase_train_parity()
 
     rows = []
     for name, line, launches in [("window_knn", "knn.py:40", n_knn),
@@ -314,7 +631,22 @@ def main() -> int:
             "bound_by": "bytes" if t["by"] == {"bytes"} else "operations",
             "library_ms": None,
             "work": "one forward: flow1-3 grids, bf16, F=(32,32,64) per flow",
+            "launches_per": "serving request",
+            "launches_per_train_step": per_train[name][0],
+            "launches_per_val_batch": per_train[name][1],
         })
+    rows.append({
+        "name": "window_gather", "route": "cuda",
+        "source": "pointmvsnet_tpu_torch/csrc/window_gather.cu",
+        "replaces": "benchmarks/pallas_gather_probe.py:88",
+        "launches": 0, "max_abs_err": gat["err"],
+        "ms": round(gat["ms"], 5), "plain_ms": round(gat["plain_ms"], 4),
+        "bound_ms": round(gat["bound_ms"], 5), "bound_by": gat["by"],
+        "library_ms": round(gat["library_ms"], 5),
+        "work": "probe default: N=327680 rows of W=128 f32, SPAN=2048",
+        "launches_per": "serving request (the probe is off the model's path)",
+        "launches_probe_entry_point": gat["probe_launches"],
+    })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

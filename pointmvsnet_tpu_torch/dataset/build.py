@@ -1,0 +1,114 @@
+"""Batch loader: collation, shuffling, background prefetch. The port's copy
+of ``pointmvsnet_tpu/dataset/build.py`` (numpy batches; the train step
+moves them to the device). Only the train and val splits are ported; the
+test split waits for the test-CLI slice.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, List, Sequence
+
+import numpy as np
+
+
+def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Stack a list of sample dicts into a batch dict (adds leading B dim)."""
+    keys = items[0].keys()
+    return {k: np.stack([np.asarray(it[k]) for it in items]) for k in keys}
+
+
+PREFETCH = 2       # batches decoded ahead by the worker thread
+
+
+class DataLoader:
+    """Minimal epoch-based loader. The last partial batch is dropped, so
+    every batch has the same shape; ``num_workers`` > 0 decodes batches in
+    one background thread, ``PREFETCH`` batches ahead."""
+
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 seed: int = 0, num_workers: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = num_workers
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def _batch_indices(self) -> List[np.ndarray]:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self._epoch).shuffle(idx)
+        nb = len(self)
+        return [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)]
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        batches = self._batch_indices()
+        if self.num_workers <= 0:
+            for b in batches:
+                yield collate([self.dataset[int(i)] for i in b])
+            return
+        yield from self._threaded_iter(batches)
+
+    def _threaded_iter(self, batches):
+        q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for b in batches:
+                    if stop.is_set():
+                        return
+                    q.put(collate([self.dataset[int(i)] for i in b]))
+            except Exception as e:  # surface loader errors in the main thread
+                q.put(e)
+            finally:
+                q.put(None)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            # a consumer that stops early leaves the worker blocked on a full
+            # queue: drain it so the thread ends and frees its batches
+            stop.set()
+            while t.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    t.join(0.05)
+
+
+def build_data_loader(cfg, mode: str = "train") -> DataLoader:
+    """cfg → the loader of the "train" or "val" split."""
+    from pointmvsnet_tpu_torch.dataset.dtu import DTUTrainValDataset
+
+    if mode == "test":
+        raise NotImplementedError("the test split is not ported yet (test-CLI slice)")
+    if mode not in ("train", "val"):
+        raise ValueError(f"mode {mode!r}: want 'train', 'val' or 'test'")
+    split = cfg.DATA.TRAIN if mode == "train" else cfg.DATA.VAL
+    ds = DTUTrainValDataset(
+        split.ROOT_DIR, mode=mode,
+        num_view=split.NUM_VIEW,
+        num_virtual_plane=cfg.DATA.TRAIN.NUM_VIRTUAL_PLANE,
+        interval_scale=cfg.DATA.TRAIN.INTERVAL_SCALE)
+    if mode == "train":
+        return DataLoader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=True,
+                          seed=cfg.RNG_SEED, num_workers=cfg.DATA.NUM_WORKERS)
+    return DataLoader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=False,
+                      num_workers=cfg.DATA.NUM_WORKERS)

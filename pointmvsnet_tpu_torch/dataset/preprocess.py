@@ -1,6 +1,7 @@
-"""Image/camera preprocessing for the serving path: the port's numpy-only
-copy of ``pointmvsnet_tpu/dataset/preprocess.py :: norm_image,
-scale_camera, crop_mvs_input`` (no cv2)."""
+"""Image/camera preprocessing: the port's numpy-only copy of
+``pointmvsnet_tpu/dataset/preprocess.py :: norm_image, scale_camera,
+crop_mvs_input, mask_depth_image`` and the nearest-neighbour case of
+``resize_image`` (no cv2)."""
 
 from __future__ import annotations
 
@@ -45,3 +46,23 @@ def crop_mvs_input(images: Sequence[np.ndarray], cams: Sequence[np.ndarray],
         c[1, 1, 2] -= start_h
         out_cams.append(c)
     return out_imgs, out_cams
+
+
+def mask_depth_image(depth: np.ndarray, min_depth: float, max_depth: float) -> np.ndarray:
+    """Zero out depth outside [min, max] (zeros mark invalid pixels)."""
+    out = np.where((depth >= min_depth) & (depth <= max_depth), depth, 0.0)
+    return out.astype(np.float32)
+
+
+def resize_image(img: np.ndarray, shape_hw: Tuple[int, int]) -> np.ndarray:
+    """Nearest-neighbour resize to (h, w), equal to ``cv2.resize(img, (w, h),
+    interpolation=cv2.INTER_NEAREST)``: source index floor(i · (1 / (n_out /
+    n_in))) in double precision, clamped to the last row / column."""
+    nh, nw = shape_hw
+    h, w = img.shape[:2]
+
+    def src(n_out, n_in):
+        inv = 1.0 / (n_out / n_in)
+        return np.minimum(np.floor(np.arange(n_out) * inv).astype(np.int64), n_in - 1)
+
+    return img[src(nh, h)][:, src(nw, w)]

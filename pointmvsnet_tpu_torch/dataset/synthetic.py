@@ -1,5 +1,7 @@
-"""In-memory synthetic MVS scenes: the port's numpy-only copy of
-``pointmvsnet_tpu/dataset/synthetic.py :: make_scene_batch``.
+"""Synthetic MVS scenes: the port's numpy-only copy of
+``pointmvsnet_tpu/dataset/synthetic.py :: make_scene_batch`` (in memory) and
+``make_synthetic_dtu`` (a DTU training-release tree on disk, PNGs written
+by ``dataset/io.py::write_png``).
 
 Two textured fronto-parallel half-planes seen by cameras translated along
 x, so the true depth is known and plane-sweep stereo can recover it. The
@@ -12,8 +14,12 @@ disparities) is the same.
 
 from __future__ import annotations
 
+import os
+from typing import Sequence
+
 import numpy as np
 
+from pointmvsnet_tpu_torch.dataset.io import write_cam, write_pfm, write_png
 from pointmvsnet_tpu_torch.dataset.preprocess import norm_image
 
 
@@ -118,3 +124,57 @@ def make_scene_batch(batch: int, num_views: int, height: int, width: int,
         gt[b, :, split:] = d_hi
     cam_batch = np.broadcast_to(np.stack(cams), (batch, num_views, 2, 4, 4))
     return images, np.ascontiguousarray(cam_batch, np.float32), gt
+
+
+def make_synthetic_dtu(root: str, scans: Sequence[int] = (1,), num_views: int = 5,
+                       height: int = 128, width: int = 160, depth_min: float = 425.0,
+                       depth_interval: float = 2.5, num_depth: int = 48,
+                       num_lights: int = 7, seed: int = 0,
+                       layout: str = "train") -> None:
+    """Create a DTU training-release tree under ``root``: shared
+    ``Cameras/`` (cams + pair.txt), ``Rectified/scan{n}_train/`` PNGs for
+    every view and light (gain 0.75 + 0.08·light), ``Depths/scan{n}_train/``
+    PFMs. The scene is the two textured half-planes of ``make_scene_batch``;
+    each view's depth map sees them shifted by its disparity. The eval
+    layout (JPEGs) waits for the test-CLI slice."""
+    if layout != "train":
+        raise NotImplementedError(f"layout {layout!r} is not ported yet (test-CLI slice)")
+    rng = np.random.RandomState(seed)
+    cams, f, baseline = _make_cams(num_views, height, width, depth_min,
+                                   depth_interval, num_depth)
+    os.makedirs(os.path.join(root, "Cameras"), exist_ok=True)
+    for v in range(num_views):
+        write_cam(os.path.join(root, "Cameras", f"{v:08d}_cam.txt"), cams[v])
+    with open(os.path.join(root, "Cameras", "pair.txt"), "w") as fp:
+        fp.write(f"{num_views}\n")
+        for v in range(num_views):
+            others = [u for u in sorted(range(num_views), key=lambda u: (abs(u - v), u))
+                      if u != v]
+            fp.write(f"{v}\n{len(others)} "
+                     + " ".join(f"{u} {100.0 - 10 * i}" for i, u in enumerate(others))
+                     + "\n")
+
+    d_lo = depth_min + 0.25 * (num_depth - 1) * depth_interval
+    d_hi = depth_min + 0.70 * (num_depth - 1) * depth_interval
+    split = width // 2
+    for scan in scans:
+        img_dir = os.path.join(root, "Rectified", f"scan{scan}_train")
+        dep_dir = os.path.join(root, "Depths", f"scan{scan}_train")
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(dep_dir, exist_ok=True)
+        tex_l = _texture(rng, height, width)
+        tex_r = _texture(rng, height, width)
+        for v in range(num_views):
+            img = _render_two_planes(v, f, baseline, height, width, d_lo, d_hi,
+                                     tex_l, tex_r)
+            img = np.clip(np.rint(img), 0, 255).astype(np.uint8)
+            for light in range(num_lights):
+                gain = 0.75 + 0.08 * light
+                out = np.clip(img.astype(np.float32) * gain, 0, 255).astype(np.uint8)
+                write_png(os.path.join(img_dir, f"rect_{v + 1:03d}_{light}_r5000.png"), out)
+            depth = np.full((height, width), d_lo, np.float32)
+            depth[:, split:] = d_hi
+            for d, x0, x1 in [(d_lo, 0, split), (d_hi, split, width)]:
+                disp = int(round(f * (v * baseline) / d))
+                depth[:, max(0, x0 - disp):max(0, x1 - disp)] = d
+            write_pfm(os.path.join(dep_dir, f"depth_map_{v:04d}.pfm"), depth)

@@ -3,12 +3,14 @@
 
 ``build_model`` rejects the JAX package's TPU-only knobs when they are set
 away from a value whose meaning the port implements, instead of quietly
-reinterpreting them. The loss and metrics wait for the training slice, so
-the build functions return the model alone.
+reinterpreting them. Where the JAX package's build functions return the
+triple (model, loss_fn, metric_fn), the port's return the model, and
+``build_loss_fn`` / ``pointmvsnet_metrics`` give the other two.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict
 
 import torch
@@ -16,6 +18,7 @@ import torch
 from pointmvsnet_tpu_torch import resolve_device
 from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
 from pointmvsnet_tpu_torch.models.image_conv import ImageConv
+from pointmvsnet_tpu_torch.models.loss import pointmvsnet_loss, pointmvsnet_metrics
 from pointmvsnet_tpu_torch.models.pointmvsnet import PointFlow, PointMVSNet
 from pointmvsnet_tpu_torch.models.volume_conv import VolumeConv
 
@@ -74,9 +77,18 @@ def build_mvsnet(cfg) -> PointMVSNet:
     return build_pointmvsnet(cfg)
 
 
+def build_loss_fn(cfg) -> Callable:
+    """cfg → ``loss_fn(preds, gt_depth, cams)``, with the flow iterations'
+    reach mask at ``MODEL.VALID_THRESHOLD`` when ``MODEL.MASKED_LOSS``."""
+    return functools.partial(
+        pointmvsnet_loss,
+        valid_threshold=cfg.MODEL.VALID_THRESHOLD if cfg.MODEL.MASKED_LOSS else 0.0)
+
+
 def build_model(cfg, device="cuda") -> PointMVSNet:
     """cfg → the model on ``device`` (CUDA unless the caller asks for the
-    CPU; raises without a GPU), in eval mode."""
+    CPU; raises without a GPU), in eval mode; the train step switches it to
+    training mode."""
     dev = resolve_device(device)
     name = cfg.MODEL.NAME
     if name not in MODEL_REGISTRY:
@@ -85,5 +97,6 @@ def build_model(cfg, device="cuda") -> PointMVSNet:
 
 
 __all__ = ["PointMVSNet", "PointFlow", "ImageConv", "VolumeConv", "EdgeConv",
+           "pointmvsnet_loss", "pointmvsnet_metrics", "build_loss_fn",
            "build_model", "build_pointmvsnet", "build_mvsnet", "MODEL_REGISTRY",
            "register_model", "check_model_knobs"]

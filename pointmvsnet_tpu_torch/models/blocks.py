@@ -3,11 +3,17 @@ counterpart of ``pointmvsnet_tpu/models/blocks.py``.
 
 Parameters stay float32 and are cast to the block's compute ``dtype`` in
 ``forward``, as flax's ``dtype=`` does. Convs pad k//2 on both sides;
-deconvs are ``ConvTranspose(k, s, padding=k//2, output_padding=s-1)``. BN
-uses eps 1e-5 and (eval mode) its running statistics; GN uses
-gcd(8, C) groups. Norm arithmetic runs in f32 and its output is cast back
-to the compute dtype. The convs run NCHW / NCDHW; ``SharedMLP`` takes
+deconvs are ``ConvTranspose(k, s, padding=k//2, output_padding=s-1)``. GN
+uses gcd(8, C) groups. Norm arithmetic runs in f32 and its output is cast
+back to the compute dtype. The convs run NCHW / NCDHW; ``SharedMLP`` takes
 channels-last (B, N, C).
+
+BatchNorm (eps 1e-5) keeps ``nn.BatchNorm*d``'s parameters and buffers but
+not its training arithmetic: in eval mode it normalizes by the running
+statistics; in training mode ``bn_train`` follows flax's ``BatchNorm``
+(batch mean and E[x²] − E[x]² clamped at 0, in f32; running statistics
+blended with momentum 0.9 using the *biased* batch variance, where torch's
+own module would use the unbiased one).
 """
 
 from __future__ import annotations
@@ -32,13 +38,52 @@ def make_norm(norm: str, channels: int, rank: int = 1) -> nn.Module | None:
     raise ValueError(f"Unknown norm {norm!r}")
 
 
+BN_MOMENTUM = 0.9      # flax's: running = 0.9 · running + 0.1 · batch
+
+
+def bn_batch_stats(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, dims):
+    """Train-mode BatchNorm arithmetic of flax over the reduction ``dims``
+    of ``x`` (the channels are the remaining dim): f32 batch mean and
+    E[x²] − E[x]² clamped at 0, f32 normalization cast back to ``x``'s
+    dtype. → (y, mean, var); the running statistics are left alone."""
+    xf = x.float()
+    mean = xf.mean(dims)
+    var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+    shape = [1] * x.dim()
+    ch = next(d for d in range(x.dim()) if d not in dims)
+    shape[ch] = -1
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return y.to(x.dtype), mean, var
+
+
+@torch.no_grad()
+def bn_blend(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor,
+             var: torch.Tensor) -> None:
+    """Blend batch statistics into the running ones, in place."""
+    bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+    bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
+
+
+def bn_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+             dims) -> torch.Tensor:
+    """Train-mode BatchNorm with flax semantics: ``bn_batch_stats``, then
+    the running statistics blended."""
+    y, mean, var = bn_batch_stats(bn, x, dims)
+    bn_blend(bn, mean, var)
+    return y
+
+
 def apply_norm(layer: nn.Module | None, x: torch.Tensor) -> torch.Tensor:
-    """Channels at dim 1. BN takes a low-precision input with f32 stats
-    directly (its arithmetic is f32); GN is run on an f32 copy."""
+    """Channels at dim 1. Eval BN takes a low-precision input with f32
+    stats directly (its arithmetic is f32); train BN is ``bn_train``; GN is
+    run on an f32 copy in both modes."""
     if layer is None:
         return x
     if isinstance(layer, nn.GroupNorm):
         return layer(x.float()).to(x.dtype)
+    if layer.training:
+        return bn_train(layer, x, [0, *range(2, x.dim())])
     return layer(x)
 
 

@@ -1,4 +1,4 @@
-"""Point-MVSNet eval forward: coarse plane sweep + iterative PointFlow.
+"""Point-MVSNet forward: coarse plane sweep + iterative PointFlow.
 Counterpart of ``pointmvsnet_tpu/models/pointmvsnet.py`` (``scale_cams``,
 ``hypothesis_points``, ``PointFlowCore``, ``PointFlow``, ``PointMVSNet``).
 
@@ -9,8 +9,11 @@ depth and refines it by the expected residual over 2m+1 hypotheses per
 pixel, ``inter_scales[i]`` depth intervals apart along the viewing ray.
 
 PointFlow runs unbanded: the JAX package's row bands fit the TPU's VMEM,
-while the full-resolution map fits the card whole. Only the eval forward
-is ported; the model raises in training mode.
+while the full-resolution map fits the card whole. ``model.train()``
+selects the training forward of the JAX package's ``train=True``: batch
+statistics in every BatchNorm, the kNN indices alone and EdgeConv's gather
+path (the masked-max fast path is eval only), the image pyramid run anew
+for every flow iteration, and no gradient into the kNN or ``flowN_input``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from pointmvsnet_tpu_torch.ops.geometry import (
     pixel_grid,
     unproject_pixels,
 )
-from pointmvsnet_tpu_torch.ops.knn import window_knn_mask
+from pointmvsnet_tpu_torch.ops.knn import window_knn_idx, window_knn_mask
 from pointmvsnet_tpu_torch.ops.sampling import (
     fetch_features_perlevel,
     regular_grid_sample,
@@ -133,8 +136,11 @@ class PointFlow(nn.Module):
         sq_mean = (ref_all.square() + s2) / nv
         point_feat = sq_mean - mean.square()
 
-        idx, mask = window_knn_mask(x.float().contiguous(), (g, h, w),
-                                    self.k, self.window)
+        pts = x.detach().float().contiguous()
+        if self.training:
+            idx, mask = window_knn_idx(pts, (g, h, w), self.k, self.window), None
+        else:
+            idx, mask = window_knn_mask(pts, (g, h, w), self.k, self.window)
         edge_outs = []
         y = point_feat
         for ec in self.edge_convs:
@@ -147,7 +153,7 @@ class PointFlow(nn.Module):
 
 
 class PointMVSNet(nn.Module):
-    """The full model (eval). ``forward`` takes images (B, V, H, W, 3)
+    """The full model. ``forward`` takes images (B, V, H, W, 3)
     normalized and cams (B, V, 2, 4, 4) at image resolution, view 0 the
     reference, and returns the JAX package's prediction dict."""
 
@@ -177,8 +183,6 @@ class PointMVSNet(nn.Module):
                 img_scales: Sequence[float] = (0.25, 0.5),
                 inter_scales: Sequence[float] = (0.75, 0.375),
                 num_virtual_plane: int = 48) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise RuntimeError("only the eval forward is ported: call .eval()")
         b, v, height, width, _ = images.shape
         if height % 64 or width % 64:
             raise ValueError(
@@ -194,7 +198,8 @@ class PointMVSNet(nn.Module):
         # ---------------- coarse stage -----------------------------------
         ch = int(height * self.coarse_img_scale)
         cw = int(width * self.coarse_img_scale)
-        # kept: an eval flow iteration at the coarse scale reuses it
+        # kept: an eval flow iteration at the coarse scale reuses it (in
+        # training every run of ImageConv blends its own BN statistics)
         coarse_pyr = self._pyramid(_resize_views(images, ch, cw))
         feats = coarse_pyr["conv2"]                              # (B, V, fh, fw, C)
         fh, fw = feats.shape[2], feats.shape[3]
@@ -215,7 +220,7 @@ class PointMVSNet(nn.Module):
         # ---------------- PointFlow iterations ---------------------------
         for it, (s, inter_s) in enumerate(zip(img_scales, inter_scales)):
             th, tw = int(height * s), int(width * s)
-            if (th, tw) == (ch, cw):
+            if not self.training and (th, tw) == (ch, cw):
                 pyr = coarse_pyr
             else:
                 pyr = self._pyramid(_resize_views(images, th, tw))
@@ -225,7 +230,7 @@ class PointMVSNet(nn.Module):
             ref_cam = scale_cams(cams[:, 0], tw / width, th / height)
             cur = F.interpolate(cur[:, None], (th, tw), mode="bilinear",
                                 align_corners=False)[:, 0]
-            preds[f"flow{it + 1}_input"] = cur
+            preds[f"flow{it + 1}_input"] = cur.detach()
             cur = self.point_flow(levels, cams_levels, ref_cam, cur, d_int * inter_s)
             preds[f"flow{it + 1}"] = cur
         return preds

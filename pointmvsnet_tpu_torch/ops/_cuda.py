@@ -33,6 +33,7 @@ SIGNATURES = {
     "window_knn": {"window_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "masked_window_max": {
         "masked_window_max": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "window_gather": {"window_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -3,9 +3,10 @@ counterpart of ``pointmvsnet_tpu/ops/knn.py`` (``window_knn``,
 ``gather_knn``, ``window_knn_mask_auto``) and of the Pallas kernel
 ``ops/pallas/knn.py``.
 
-``window_knn_mask`` dispatches on the tensor's device: a CUDA tensor goes
-to the hand-written kernel ``csrc/window_knn.cu`` (``window_knn_cuda``),
-a CPU tensor to the plain version ``window_knn``. Both rank candidates by
+``window_knn_mask`` (eval) and ``window_knn_idx`` (training) dispatch on
+the tensor's device: a CUDA tensor goes to the hand-written kernel
+``csrc/window_knn.cu`` (``window_knn_cuda``), a CPU tensor to the plain
+version ``window_knn``. Both rank candidates by
 the JAX package's packed key, so their indices and masks are bit-equal.
 """
 
@@ -122,6 +123,17 @@ def window_knn_mask(points: torch.Tensor, grid_shape: Tuple[int, int, int],
         return window_knn_cuda(points, grid_shape, k, window)
     if points.device.type == "cpu":
         return window_knn(points, grid_shape, k, window, with_mask=True)
+    raise ValueError(f"unsupported device {points.device}")
+
+
+def window_knn_idx(points: torch.Tensor, grid_shape: Tuple[int, int, int],
+                   k: int = 16, window: int = 5) -> torch.Tensor:
+    """→ idx alone (training's gather path): the CUDA kernel, whose mask
+    goes unused, for a CUDA tensor; the plain version for a CPU tensor."""
+    if points.is_cuda:
+        return window_knn_cuda(points, grid_shape, k, window)[0]
+    if points.device.type == "cpu":
+        return window_knn(points, grid_shape, k, window)
     raise ValueError(f"unsupported device {points.device}")
 
 

@@ -1,0 +1,10 @@
+"""Train / eval steps of the port on one card (data parallelism waits)."""
+
+from pointmvsnet_tpu_torch.parallel.train_step import (
+    TrainState,
+    make_eval_step,
+    make_train_step,
+    put_batch,
+)
+
+__all__ = ["TrainState", "make_train_step", "make_eval_step", "put_batch"]
