@@ -12,7 +12,15 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            windowed kNN (idx and mask bit-equal) and masked window max
            (bit-equal, bf16 and f32); the kernel's device time
            (torch.profiler), the plain version's time (CUDA events), and
-           the bound of the same work.
+           the bound of the same work. Then inputs meant to break them:
+           the kNN on integer-lattice points (exact d² ties), on
+           duplicated hypothesis levels and on grids that are not a
+           multiple of its tile; the masked max on NaN rows, on {−0, +0,
+           ±1} (signed zeros, exact ties), under kNN masks and random ones
+           (out-of-image bits, bits past G·25, empty masks), in bf16 and
+           f32, at widths that take its vector and its scalar path; each
+           against the plain version on the card and (on the small grids)
+           on the CPU, NaN positions first, then the bits of the rest.
 4. gather  the probe's windowed row gather (csrc/window_gather.cu) against
            its plain version, bit-equal, at the probe's default shape and
            at one whose rows fill the upper slab and the padded last
@@ -115,6 +123,21 @@ def device_ms(fn, kernel: str, reps: int = 20):
     return time_ms(fn, reps), "events"
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality up to NaN payloads: NaN at the same places, then the
+    same bits elsewhere (torch.equal is False wherever a NaN is, and
+    takes −0 == +0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    it = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.view(it)[~nan], b.view(it)[~nan])
+
+
 def flow_points(h: int, w: int, dev) -> torch.Tensor:
     """Hypothesis points of a flow grid as the model makes them: a
     two-plane depth map with noise, G = 5 hypotheses along each ray."""
@@ -176,7 +199,7 @@ def phase_kernels(dev):
                 out = masked_window_max_cuda(z, mask, grid)
                 torch.cuda.synchronize()
                 ref = masked_window_max_plain(z, mask, grid)
-                check(torch.equal(out, ref),
+                check(same_bits(out, ref),
                       f"masked_window_max flow{fi} F={f} {dtype}: kernel != plain")
                 err = float((out.float() - ref.float()).abs().max())
                 ms, how = device_ms(lambda: masked_window_max_cuda(z, mask, grid),
@@ -196,6 +219,90 @@ def phase_kernels(dev):
                 t = tot["masked_window_max"]
                 t["err"] = max(t["err"], err)
     return tot
+
+
+def special_z(kind: str, b: int, p: int, f: int, seed: int) -> np.ndarray:
+    """``nan``: normal values with whole NaN rows and scattered NaN
+    entries; ``zeros``: {−0, +0, +1, −1} drawn 0.6 / 0.05 / 0.05 / 0.3, so
+    that many maxima are −0, many +0, and most are exact ties."""
+    rng = np.random.RandomState(seed)
+    if kind == "nan":
+        z = rng.randn(b, p, f).astype(np.float32)
+        z[0, rng.choice(p, 5, replace=False)] = np.nan
+        z[b - 1, rng.choice(p, 60), rng.randint(0, f, 60)] = np.nan
+        return z
+    return rng.choice(np.array([-0.0, 0.0, 1.0, -1.0], np.float32), (b, p, f),
+                      p=[0.6, 0.05, 0.05, 0.3])
+
+
+def random_mask(b: int, g: int, h: int, w: int, dev, seed: int) -> torch.Tensor:
+    """Selection bitplanes no kNN makes: a quarter of all 128 bits set
+    (out-of-image bits and bits past G·25 included), 10% of the points
+    empty."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nw = -(-(g * WIN * WIN) // 32)
+    shape = (b, nw, g, h, w)
+    words = [torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen, device=dev,
+                           dtype=torch.int64) for _ in range(2)]
+    keep = torch.rand((b, 1, g, h, w), generator=gen, device=dev) >= 0.1
+    return ((words[0] & words[1]) * keep).to(torch.int32)
+
+
+def phase_adversarial(dev):
+    """The kNN and the masked max on inputs meant to break them, kernel
+    against the plain version on the card and on the CPU (see the module
+    docstring)."""
+    from pointmvsnet_tpu_torch.ops.edge import masked_window_max_cuda, masked_window_max_plain
+    from pointmvsnet_tpu_torch.ops.knn import window_knn, window_knn_cuda
+
+    n_knn = n_mwm = 0
+    grids = [(5, 37, 53), (5, 36, 52), (3, 20, 30), (G,) + FLOWS[0]]
+    for gi, (g, h, w) in enumerate(grids):
+        grid, p, b = (g, h, w), g * h * w, 2
+        rng = np.random.RandomState(gi)
+        cases = {"random": rng.rand(b, p, 3) * 10,
+                 "lattice": rng.randint(0, 3, (b, p, 3)),
+                 "duplicates": np.broadcast_to(
+                     (rng.rand(b, 1, h, w, 3) * 10), (b, g, h, w, 3)).reshape(b, p, 3)}
+        for case, arr in cases.items():
+            pts = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(dev)
+            idx, mask = window_knn_cuda(pts, grid)
+            torch.cuda.synchronize()
+            small = gi < 3          # the CPU's plain versions are slow at flow1
+            ref = window_knn(pts, grid, K, WIN, with_mask=True)
+            cpu = window_knn(pts.cpu(), grid, K, WIN, with_mask=True) if small else ref
+            check(torch.equal(idx, ref[0]) and torch.equal(mask, ref[1])
+                  and torch.equal(idx.cpu(), cpu[0].cpu()) and torch.equal(mask.cpu(), cpu[1].cpu()),
+                  f"window_knn {case} grid {grid}: kernel != plain")
+            n_knn += 1
+            if case != "random":
+                continue
+            for mcase, m in (("knn", mask), ("random", random_mask(b, g, h, w, dev, gi))):
+                for f in ((32, 64, 10, 40) if gi == 0 else (32, 64)):
+                    for kind in ("nan", "zeros"):
+                        z32 = torch.from_numpy(special_z(kind, b, p, f, gi * 100 + f)).to(dev)
+                        for dtype in (torch.bfloat16, torch.float32):
+                            z = z32.to(dtype)
+                            out = masked_window_max_cuda(z, m, grid)
+                            torch.cuda.synchronize()
+                            ref = masked_window_max_plain(z, m, grid)
+                            cpu = (masked_window_max_plain(z.cpu(), m.cpu(), grid) if small
+                                   else ref.cpu())
+                            check(same_bits(out, ref) and same_bits(out.cpu(), cpu),
+                                  f"masked_window_max {kind} {mcase}-mask grid {grid} F={f} "
+                                  f"{dtype}: kernel != plain")
+                            if kind == "nan":
+                                check(bool(torch.isnan(out).any()), "no NaN reached the output")
+                            elif mcase == "knn":
+                                zero = out[out == 0]
+                                check(bool(torch.signbit(zero).any())
+                                      and bool((~torch.signbit(zero)).any()),
+                                      "the ±0 case produced only one zero")
+                            n_mwm += 1
+    print(f"adversarial: window_knn {n_knn} cases (random, integer lattice, duplicated "
+          f"levels; grids {grids}) and masked_window_max {n_mwm} cases (NaN rows, "
+          f"{{-0, +0, ±1}}; kNN and random masks; F 10/32/40/64; bf16, f32): kernel "
+          f"bit-equal to the plain version on the card and on the CPU", flush=True)
 
 
 def phase_gather(dev):
@@ -610,6 +717,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     tot = phase_kernels(dev)
+    phase_adversarial(dev)
     gat = phase_gather(dev)
     phase_parity()
     n_knn, n_mwm = phase_serve()

@@ -4,33 +4,45 @@
 // masked_window_max, called from models/edge_conv.py::_fast_masked_max).
 // out[b, p, f] = max of z[b, nbr_s(p), f] over the window candidates s set
 // in p's selection mask (bit s = gc·25 + dy·5 + dx of word s / 32), where
-// nbr_s(g, y, x) = (gc, y + dy − 2, x + dx − 2); −finfo(f32).max / 2
-// (rounded to the output type) where no in-image candidate is set, which
-// the kNN never produces. Candidates are visited in increasing s and a
-// value replaces the running max only when strictly greater, as in the
-// plain version, so the two agree bit for bit.
+// nbr_s(g, y, x) = (gc, y + dy − 2, x + dx − 2), folded from the floor
+// −finfo(f32).max / 2 (rounded to the output type), which is the result
+// where no bit is set. The fold is jnp.maximum's: a NaN wins, +0 wins over
+// −0, and equal values are bit-identical otherwise, so the result does not
+// depend on the order of the candidates and equals the plain version bit
+// for bit (NaN payloads aside: the card returns its canonical NaN). Bits
+// that point outside the image, or at a level ≥ G, add nothing.
 //
-// Bound on this card: bytes. The function reads z and the 4 mask words
-// once and writes out once: at the 512×640 flow grid (G = 5) about 236 MB
-// in bf16 at F = 32 (70 µs at 3.35 TB/s) and 446 MB at F = 64 (133 µs);
-// the 16 maxima per output value are far below the arithmetic peak.
+// Bound on this card: bytes. The function reads z and the mask words once
+// and writes out once: at the 512×640 flow grid (G = 5) about 236 MB in
+// bf16 at F = 32 (70 µs at 3.35 TB/s) and 446 MB at F = 64 (133 µs); the
+// 16 maxima per output value are far below the arithmetic peak.
 //
-// Design: one warp per point with lanes over F, so each neighbour row
-// (64 B at F = 32 in bf16, 128 B at F = 64) is one coalesced read; 16 rows
-// per point instead of the 125-way scan. Reading the rows one after the
-// other leaves the warp waiting on one load at a time, so the kernel works
-// in two passes: lane l decodes candidate 32·w + l of each mask word (its
-// rank among the set bits is a popcount) into the warp's row list in
-// shared memory, then the warp loads the listed rows 8 at a time, all 8 in
-// flight together, and folds them into the running max in list order
-// (= increasing s). Neighbour rows repeat across nearby points, and the
-// 5 levels × 5 rows × W working set of neighbouring warps stays in L2. The
-// comparison runs in f32 and the stored value is one of the inputs, so
-// bf16 is exact. The TPU kernel's roll trick, per-level mask repack and
-// f32 upcast served its vector unit and are not needed here. The +c2 /
-// ReLU epilogue stays in PyTorch.
+// Design. The first design (one warp per point, lanes over F, the mask
+// decoded into a row list) spent ~300 warp-instructions per point and read
+// every z row ~16 times from L1/L2. Here a block owns a tile of 4×32
+// pixels at all G levels and one 64-byte chunk of the channels (32 bf16 or
+// 16 f32; the chunk is in blockIdx.z). It copies the tile's z rows with a
+// 2-pixel halo (G·8·36 rows × 64 B = 92 KB at G = 5) and its mask words
+// (10 KB) into shared memory with cp.async, so device memory sees each z
+// row about 2.25 times (the halo, mostly from L2) and the 16 selected rows
+// per point come from shared memory; two blocks fit an SM. Rows outside
+// the image are filled with the floor, so an out-of-image bit needs no
+// test. Each point gets a group of 4 lanes, one 16-byte piece of the chunk
+// each, so a warp folds 8 points at once. A group walks its own set bits
+// one 32-bit word at a time, highest bit first (no row list), maps each
+// bit to a shared-memory row through a 128-entry table, and folds the row
+// in with max.NaN (bf16x2 or f32): 13 instructions per bit. max.NaN on
+// this card returns NaN if either input is NaN and +0 for (−0, +0) in
+// either order; chip_smoke.py's ±0 inputs hold it to that. Outputs leave
+// as 16-byte stores. What was tried and lost (PERF.md): one persistent
+// block per SM copying the next tile while folding this one (fewer warps,
+// slower), and loading 2 or 4 bits' rows before folding them. The TPU
+// kernel's rolls, per-level mask repack and f32 upcast served its vector
+// unit and are not needed. The +c2 / ReLU epilogue stays in PyTorch.
 
 #include <cfloat>
+#include <cstdint>
+#include <cstring>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -39,98 +51,193 @@ namespace {
 constexpr int WIN = 5;
 constexpr int R = WIN / 2;
 constexpr int NSH = WIN * WIN;
-constexpr int WARPS = 8;
-constexpr int MAX_CAND = 128;  // 4 mask words
+constexpr int MAX_G = 5;
+constexpr int MAX_NW = 4;              // mask words for at most 128 candidates
+constexpr int TH = 4;                  // tile rows
+constexpr int TW = 32;                 // tile columns
+constexpr int SH = TH + 2 * R;
+constexpr int SW = TW + 2 * R;
+constexpr int CHUNK_BYTES = 64;        // channels per tile: one 64-byte chunk
+constexpr int PIECES = CHUNK_BYTES / 16;  // lanes per point
+constexpr int THREADS = 512;
+constexpr int GROUPS = THREADS / PIECES;
+// shared memory, in uint4: z rows [G][SH][SW][PIECES], then mask words [NW][G][TH][TW]
+constexpr int BUF_ROWS = MAX_G * SH * SW * PIECES;
+constexpr int BUF_U4 = BUF_ROWS + MAX_NW * MAX_G * TH * TW / 4;
+constexpr int SMEM_BYTES = BUF_U4 * 16;   // 102,400: two blocks per SM
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+__device__ __forceinline__ unsigned max_nan(unsigned a, unsigned b, float) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(__uint_as_float(a)), "f"(__uint_as_float(b)));
+  return __float_as_uint(r);
 }
 
-// NF = values per lane (F ≤ 32·NF)
-template <typename T, int NF>
-__global__ void __launch_bounds__(WARPS * 32)
-masked_window_max_kernel(const T* __restrict__ z, const int* __restrict__ mask,
-                         T* __restrict__ out, int B, int G, int H, int W, int F) {
-  __shared__ int rows[WARPS][MAX_CAND];  // per warp: selected rows, -1 = outside
-  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int wib = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ unsigned max_nan(unsigned a, unsigned b, __nv_bfloat16) {
+  __nv_bfloat162 x, y;
+  memcpy(&x, &a, 4);
+  memcpy(&y, &b, 4);
+  const __nv_bfloat162 m = __hmax2_nan(x, y);
+  unsigned r;
+  memcpy(&r, &m, 4);
+  return r;
+}
+
+template <typename T> __device__ __forceinline__ unsigned floor_bits();
+template <> __device__ __forceinline__ unsigned floor_bits<float>() {
+  return __float_as_uint(-FLT_MAX * 0.5f);
+}
+template <> __device__ __forceinline__ unsigned floor_bits<__nv_bfloat16>() {
+  const __nv_bfloat16 v = __float2bfloat16_rn(-FLT_MAX * 0.5f);
+  unsigned short u;
+  memcpy(&u, &v, 2);
+  return (unsigned)u * 0x10001u;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src));
+}
+
+// start the copies of the tile at (y0, x0), channels from f_chunk, of batch
+// b into buf: z rows (16-byte cp.async, or loads and stores where vec is
+// false), the floor outside the image, mask words; the caller waits
+template <typename T>
+__device__ __forceinline__ void stage(uint4* buf, int b, int f_chunk, int y0, int x0,
+                                      const T* z, const int* mask, int G, int H, int W,
+                                      int F, bool vec, uint4 neg4) {
+  constexpr int EPV = 16 / sizeof(T);
   const long long hw = (long long)H * W;
   const long long npts = G * hw;
-  if (warp >= B * npts) return;
-  const long long b = warp / npts;
-  const long long p = warp - b * npts;
-  const long long pix = p % hw;
-  const int y = (int)(pix / W);
-  const int x = (int)(pix - (long long)y * W);
-  const int nw = (G * NSH + 31) / 32;
-
-  // pass 1: the set bits of the mask, in increasing s, as row indices
-  int n = 0;
-  for (int w = 0; w < nw; ++w) {
-    const unsigned word = (unsigned)__ldg(mask + (b * nw + w) * npts + p);
-    if ((word >> lane) & 1u) {
-      const int s = 32 * w + lane;
-      const int gc = s / NSH;
-      const int r2 = s - gc * NSH;
-      const int yc = y + r2 / WIN - R;
-      const int xc = x + r2 % WIN - R;
-      const bool inside = gc < G && yc >= 0 && yc < H && xc >= 0 && xc < W;
-      rows[wib][n + __popc(word & ((1u << lane) - 1u))] =
-          inside ? (int)(gc * hw + (long long)yc * W + xc) : -1;
+  const T* zb = z + (long long)b * npts * F;
+  for (int i = threadIdx.x; i < G * SH * SW * PIECES; i += THREADS) {
+    const int row = i / PIECES;
+    const int q = i - row * PIECES;
+    const int g = row / (SH * SW);
+    const int rem = row - g * (SH * SW);
+    const int yy = y0 + rem / SW - R;
+    const int xx = x0 + rem % SW - R;
+    const int f0 = f_chunk + q * EPV;
+    if (yy < 0 || yy >= H || xx < 0 || xx >= W) {
+      buf[i] = neg4;                             // outside: the floor adds nothing
+      continue;
     }
-    n += __popc(word);
+    const T* src = zb + (g * hw + (long long)yy * W + xx) * F + f0;
+    if (vec) {
+      if (f0 < F) cp_async16(&buf[i], src);
+    } else {
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      T* v = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e)
+        if (f0 + e < F) v[e] = src[e];
+      buf[i] = u;
+    }
   }
-  __syncwarp();
+  // the mask words, 4 bytes each (a row of the tile is not 16-byte aligned
+  // in general); words of points outside the image are never read
+  const int nw = (G * NSH + 31) / 32;
+  const int* mb = mask + (long long)b * nw * npts;
+  unsigned* words = reinterpret_cast<unsigned*>(buf + BUF_ROWS);
+  for (int i = threadIdx.x; i < nw * G * TH * TW; i += THREADS) {
+    const int k = i / (G * TH * TW);
+    const int rem = i - k * (G * TH * TW);
+    const int g = rem / (TH * TW);
+    const int y = y0 + (rem / TW) % TH, x = x0 + rem % TW;
+    if (y < H && x < W) cp_async4(&words[i], mb + k * npts + g * hw + (long long)y * W + x);
+  }
+}
 
-  // pass 2: 8 row loads in flight at a time, folded in list order
-  const float neg = to_f(from_f<T>(-FLT_MAX * 0.5f));
-  float acc[NF];
+// vec: F·sizeof(T) is a multiple of 16 and z, out are 16-byte aligned
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+masked_window_max_kernel(const T* __restrict__ z, const int* __restrict__ mask,
+                         T* __restrict__ out, int G, int H, int W, int F,
+                         int nchunk, bool vec) {
+  constexpr int EPV = 16 / sizeof(T);            // elements per 16-byte piece
+  constexpr int CH = CHUNK_BYTES / sizeof(T);    // elements per chunk
+  extern __shared__ uint4 rows[];                // BUF_U4
+  __shared__ int row_of[MAX_NW * 32];            // bit s → offset in the window, in uint4
+
+  const int tid = threadIdx.x;
+  const long long hw = (long long)H * W;
+  const long long npts = G * hw;
+  const unsigned neg = floor_bits<T>();
+  const uint4 neg4 = make_uint4(neg, neg, neg, neg);
+  const int nw = (G * NSH + 31) / 32;
+  const int last_bits = G * NSH - 32 * (nw - 1);
+  const unsigned last_mask = last_bits >= 32 ? ~0u : (1u << last_bits) - 1u;
+  const int q = tid % PIECES;
+
+  if (tid < MAX_NW * 32) {
+    const int gc = tid / NSH, r2 = tid - gc * NSH;
+    row_of[tid] = ((gc * SH + r2 / WIN) * SW + r2 % WIN) * PIECES;
+  }
+  const int b = blockIdx.z / nchunk;
+  const int f_chunk = (blockIdx.z - b * nchunk) * CH;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  stage(rows, b, f_chunk, y0, x0, z, mask, G, H, W, F, vec, neg4);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  const unsigned* words = reinterpret_cast<const unsigned*>(rows + BUF_ROWS);
+  const int f0 = f_chunk + q * EPV;
+  for (int pi = tid / PIECES; pi < G * TH * TW; pi += GROUPS) {
+    const int tx = pi % TW;
+    const int ty = (pi / TW) % TH;
+    const int g = pi / (TH * TW);
+    const int y = y0 + ty, x = x0 + tx;
+    if (y >= H || x >= W) continue;
+    const uint4* win = rows + (ty * SW + tx) * PIECES + q;
+    uint4 acc = neg4;
 #pragma unroll
-  for (int j = 0; j < NF; ++j) acc[j] = neg;
-  const T* zb = z + b * npts * F;
-  for (int i0 = 0; i0 < n; i0 += 8) {
-    float v[8][NF];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = i0 + i < n ? rows[wib][i0 + i] : -1;
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        const int f = lane + 32 * j;
-        v[i][j] = (r >= 0 && f < F) ? to_f(zb[(long long)r * F + f]) : neg;
+    for (int k = 0; k < MAX_NW; ++k) {
+      if (k >= nw) break;
+      unsigned m = words[k * (G * TH * TW) + pi] & (k == nw - 1 ? last_mask : ~0u);
+      while (m) {
+        const int s = 31 - __clz(m);                 // the highest set bit
+        m ^= 1u << s;
+        const uint4 v = win[row_of[32 * k + s]];
+        acc.x = max_nan(acc.x, v.x, T());
+        acc.y = max_nan(acc.y, v.y, T());
+        acc.z = max_nan(acc.z, v.z, T());
+        acc.w = max_nan(acc.w, v.w, T());
       }
     }
+    T* dst = out + ((long long)b * npts + g * hw + (long long)y * W + x) * F + f0;
+    if (vec) {
+      if (f0 < F) *reinterpret_cast<uint4*>(dst) = acc;
+    } else {
+      const T* v = reinterpret_cast<const T*>(&acc);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-        if (v[i][j] > acc[j]) acc[j] = v[i][j];
-  }
-  T* orow = out + (b * npts + p) * F;
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    if (f < F) orow[f] = from_f<T>(acc[j]);
+      for (int e = 0; e < EPV; ++e)
+        if (f0 + e < F) dst[e] = v[e];
+    }
   }
 }
 
 template <typename T>
-void launch(const void* z, const int* mask, void* out, int B, int G, int H, int W,
-            int F, cudaStream_t stream) {
-  const long long warps = (long long)B * G * H * W;
-  const unsigned blocks = (unsigned)((warps + WARPS - 1) / WARPS);
-  const T* zt = static_cast<const T*>(z);
-  T* ot = static_cast<T*>(out);
-  if (F <= 32)
-    masked_window_max_kernel<T, 1><<<blocks, WARPS * 32, 0, stream>>>(zt, mask, ot, B, G, H, W, F);
-  else if (F <= 64)
-    masked_window_max_kernel<T, 2><<<blocks, WARPS * 32, 0, stream>>>(zt, mask, ot, B, G, H, W, F);
-  else
-    masked_window_max_kernel<T, 4><<<blocks, WARPS * 32, 0, stream>>>(zt, mask, ot, B, G, H, W, F);
+cudaError_t launch(const void* z, const int* mask, void* out, int B, int G, int H, int W,
+                   int F, cudaStream_t stream) {
+  static bool attr_set = false;       // above 48 KB needs the opt-in
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        masked_window_max_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int ch = CHUNK_BYTES / (int)sizeof(T);
+  const int nchunk = (F + ch - 1) / ch;
+  const bool vec = (F * sizeof(T)) % 16 == 0 && (uintptr_t)z % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * nchunk);
+  masked_window_max_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const T*>(z), mask, static_cast<T*>(out), G, H, W, F, nchunk, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -139,16 +246,16 @@ extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// z (B, G·H·W, F) f32 (is_bf16 = 0) or bf16 (1), F ≤ 128; mask
+// z (B, G·H·W, F) f32 (is_bf16 = 0) or bf16 (1), G ≤ 5, F ≤ 128; mask
 // (B, NW, G, H, W) int32 bitplanes → out like z. Returns cudaGetLastError().
 extern "C" int masked_window_max(const void* z, const int* mask, void* out, int B,
                                  int G, int H, int W, int F, int is_bf16, int device,
                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (G > MAX_G || B * ((F * (is_bf16 ? 2 : 4) + CHUNK_BYTES - 1) / CHUNK_BYTES) > 65535)
+    return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    launch<__nv_bfloat16>(z, mask, out, B, G, H, W, F, (cudaStream_t)stream);
-  else
-    launch<float>(z, mask, out, B, G, H, W, F, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+    return (int)launch<__nv_bfloat16>(z, mask, out, B, G, H, W, F, (cudaStream_t)stream);
+  return (int)launch<float>(z, mask, out, B, G, H, W, F, (cudaStream_t)stream);
 }

@@ -6,8 +6,10 @@ out[b, p, f] = max of z[b, nbr_s(p), f] over the window candidates s set
 in p's kNN selection mask. ``masked_window_max`` dispatches on the
 device: CUDA tensors go to the hand-written kernel
 ``csrc/masked_window_max.cu``, CPU tensors to ``masked_window_max_plain``.
-Both visit candidates in increasing s and keep the first of equal values,
-so they agree bit for bit.
+Both fold with ``jnp.maximum``'s semantics: a NaN wins, +0 wins over −0,
+and equal values are bit-identical otherwise. The result then does not
+depend on the order the candidates are visited in, and the two agree bit
+for bit (NaN payloads aside) with each other and with the JAX package.
 """
 
 from __future__ import annotations
@@ -23,13 +25,29 @@ from pointmvsnet_tpu_torch.ops import _cuda
 launches = 0
 
 _NEG = torch.finfo(torch.float32).min / 2   # value where no candidate is set
+_INT_OF_SIZE = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def maximum_ieee(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum``: NaN if either is NaN, +0 for (−0, +0) in either
+    order. ``torch.maximum`` returns its first argument for two zeros, so
+    the sign bit is cleared wherever the signs differ: that changes only
+    the (−0, +0) case, since otherwise the larger value is the one that is
+    not negative."""
+    it = _INT_OF_SIZE[a.element_size()]
+    m = torch.maximum(a, b).view(it)
+    sign = torch.iinfo(it).min
+    return (m & ~((a.view(it) ^ b.view(it)) & sign)).view(a.dtype)
 
 
 def masked_window_max_plain(z: torch.Tensor, mask: torch.Tensor,
                             grid_shape: Tuple[int, int, int],
                             window: int = 5) -> torch.Tensor:
     """Plain version. z (B, G·H·W, F) g-major; mask (B, NW, G, H, W) int32
-    bitplanes from ``ops.knn.window_knn_mask`` → (B, G·H·W, F) in z's dtype."""
+    bitplanes from ``ops.knn.window_knn_mask`` → (B, G·H·W, F) in z's dtype.
+    Set bits that point outside the image, or at a level ≥ G, add nothing;
+    the result is never below −finfo(f32).max / 2 (rounded to z's dtype),
+    its value where no bit is set."""
     g, h, w = grid_shape
     b, p, f = z.shape
     r = window // 2
@@ -42,7 +60,7 @@ def masked_window_max_plain(z: torch.Tensor, mask: torch.Tensor,
                 s = (gc * window + dy) * window + dx
                 sel = ((mask[:, s // 32] >> (s % 32)) & 1).bool()[..., None]
                 cand = padded[:, gc, dy:dy + h, dx:dx + w][:, None]   # (B,1,H,W,F)
-                acc = torch.where(sel & (cand > acc), cand, acc)
+                acc = torch.where(sel, maximum_ieee(acc, cand), acc)
     return acc.reshape(b, p, f)
 
 

@@ -79,6 +79,19 @@ def _jax_edgeconv(norm, x, idx, rng, f=10):
     return mod, var
 
 
+def _port_edgeconv(var, norm, c=12, f=10):
+    """The port's EdgeConv in eval mode with the JAX variables ``var``."""
+    flat = {f"{coll}/point_flow/core/EdgeConv_0/{k}": v for coll in var
+            for k, v in traverse_util.flatten_dict(var[coll], sep="/").items()}
+    sd = {k.removeprefix("point_flow.edge_convs.0."): v
+          for k, v in jax_to_torch(flat).items()}
+    mod = EdgeConv(c, f, norm).eval()
+    res = mod.load_state_dict(sd, strict=False)
+    assert not res.unexpected_keys
+    assert all(k.endswith("num_batches_tracked") for k in res.missing_keys)
+    return mod
+
+
 @pytest.mark.parametrize("norm", ["bn", "none", "gn"])
 def test_edgeconv_matches_jax(graph, norm):
     """Port EdgeConv (fast path for bn/none, gather path for gn) vs JAX
@@ -93,14 +106,7 @@ def test_edgeconv_matches_jax(graph, norm):
     want = np.asarray(jmod.apply(var, jnp.asarray(x), jnp.asarray(idx), impl="xla", **kw)
                       if fast else jmod.apply(var, jnp.asarray(x), jnp.asarray(idx)))
 
-    flat = {f"{coll}/point_flow/core/EdgeConv_0/{k}": v for coll in var
-            for k, v in traverse_util.flatten_dict(var[coll], sep="/").items()}
-    sd = {k.removeprefix("point_flow.edge_convs.0."): v
-          for k, v in jax_to_torch(flat).items()}
-    mod = EdgeConv(12, 10, norm).eval()
-    res = mod.load_state_dict(sd, strict=False)
-    assert not res.unexpected_keys
-    assert all(k.endswith("num_batches_tracked") for k in res.missing_keys)
+    mod = _port_edgeconv(var, norm)
     tx, tidx = torch.from_numpy(x), torch.from_numpy(idx)
     with torch.no_grad():
         gather = mod(tx, tidx).numpy()
@@ -108,3 +114,103 @@ def test_edgeconv_matches_jax(graph, norm):
                    grid_shape=(G, H, W), window=WIN).numpy() if fast else gather)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got, gather, atol=1e-5, rtol=1e-5)
+
+
+def _assert_same_bits(got: np.ndarray, want: np.ndarray) -> None:
+    """Bitwise equality up to NaN payloads: NaN at the same places, then the
+    same sign bits and values elsewhere (assert_array_equal alone takes
+    −0 == +0 and NaN == NaN)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(np.signbit(got[~nan]), np.signbit(want[~nan]))
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+
+
+def _special_z(kind: str, f: int = 8) -> np.ndarray:
+    rng = np.random.RandomState({"nan": 11, "zeros": 12}[kind])
+    if kind == "nan":
+        z = rng.randn(2, P, f).astype(np.float32)
+        z[0, rng.choice(P, 3, replace=False)] = np.nan      # whole NaN rows
+        z[1, rng.choice(P, 40), rng.randint(0, f, 40)] = np.nan
+        return z
+    # exact ties and signed zeros only; mostly −0 and −1, so that many
+    # outputs are −0 and many others +0
+    return rng.choice(np.array([-0.0, 0.0, 1.0, -1.0], np.float32), (2, P, f),
+                      p=[0.6, 0.05, 0.05, 0.3])
+
+
+def _random_mask(in_image: bool) -> np.ndarray:
+    """Random selection bitplanes that no kNN makes: about 30 of the 125
+    bits per point, bits ≥ 125 of the last word set too, 10% of the
+    points empty; with ``in_image`` the bits pointing outside the image
+    are cleared (the Pallas kernel's rolls wrap there, so it is held to
+    in-image bits only)."""
+    rng = np.random.RandomState(7 + in_image)
+    nw = -(-(G * WIN * WIN) // 32)
+    bits = rng.rand(2, nw * 32, G, H, W) < 0.25
+    bits &= (rng.rand(2, 1, G, H, W) >= 0.1)
+    if in_image:
+        s = np.arange(nw * 32)
+        dy, dx = (s % 25) // WIN - WIN // 2, s % WIN - WIN // 2
+        ys, xs = np.arange(H)[:, None], np.arange(W)[None, :]
+        inside = ((ys + dy[:, None, None] >= 0) & (ys + dy[:, None, None] < H)
+                  & (xs + dx[:, None, None] >= 0) & (xs + dx[:, None, None] < W))
+        bits &= (inside & (s < G * 25)[:, None, None])[None, :, None]
+    weights = (np.uint64(1) << np.arange(32, dtype=np.uint64))[:, None, None, None]
+    return np.stack([(bits[:, w * 32:(w + 1) * 32].astype(np.uint64) * weights).sum(1)
+                     for w in range(nw)], 1).astype(np.uint32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masks", ["knn", "random", "random_in_image"])
+@pytest.mark.parametrize("kind", ["nan", "zeros"])
+def test_masked_window_max_nan_and_signed_zero(graph, kind, masks, dtype):
+    """NaN wins and +0 wins over −0, as jnp.maximum: the port's masked max
+    equals masked_window_max_xla bit for bit (NaN positions, sign bits,
+    values) on NaN rows and on {−0, +0, ±1} inputs, under kNN masks and
+    random ones (out-of-image bits, empty masks); and the Pallas kernel in
+    interpret mode where its masks hold in-image bits only."""
+    mask = graph[1] if masks == "knn" else _random_mask(masks == "random_in_image")
+    z = _special_z(kind)
+    jz = jnp.asarray(z, dtype)
+    zt = torch.from_numpy(z)
+    if dtype == "bfloat16":
+        zt = zt.bfloat16()
+    got = masked_window_max(zt, torch.from_numpy(mask.view(np.int32)), (G, H, W), WIN)
+    assert got.dtype == zt.dtype
+    got = got.float().numpy()
+    want = masked_window_max_xla(jz, jnp.asarray(mask), (G, H, W), WIN)
+    _assert_same_bits(got, want)
+    if kind == "zeros":   # the inputs exercise both zeros and exact ties
+        assert np.signbit(want[want == 0]).any() and (~np.signbit(want[want == 0])).any()
+    else:
+        assert np.isnan(want).any() and not np.isnan(want).all()
+    if masks != "random":
+        _assert_same_bits(got, pallas_mwm(jz, jnp.asarray(mask), (G, H, W), WIN,
+                                          interpret=True))
+
+
+@pytest.mark.parametrize("norm", ["bn", "none"])
+def test_edgeconv_fast_path_propagates_nan(graph, norm):
+    """One NaN feature row: EdgeConv's fast path gives NaN at the same
+    outputs as JAX EdgeConv and as the port's own gather path (amax), and
+    agrees with both elsewhere to 1e-5."""
+    idx, mask = graph
+    rng = np.random.RandomState(9)
+    x = rng.randn(2, P, 12).astype(np.float32)
+    x[0, 37] = np.nan
+    jmod, var = _jax_edgeconv(norm, x, idx, rng)
+    want = np.asarray(jmod.apply(var, jnp.asarray(x), jnp.asarray(idx), impl="xla",
+                                 mask=jnp.asarray(mask), grid_shape=(G, H, W), window=WIN))
+    mod = _port_edgeconv(var, norm)
+    tx, tidx = torch.from_numpy(x), torch.from_numpy(idx)
+    with torch.no_grad():
+        gather = mod(tx, tidx).numpy()
+        got = mod(tx, tidx, mask=torch.from_numpy(mask.view(np.int32)),
+                  grid_shape=(G, H, W), window=WIN).numpy()
+    nan = np.isnan(want)
+    assert nan.any() and not nan.all()
+    for other in (got, gather):
+        np.testing.assert_array_equal(np.isnan(other), nan)
+        np.testing.assert_allclose(other[~nan], want[~nan], atol=1e-5, rtol=1e-5)
