@@ -46,6 +46,20 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            flows, the kNN fed the same points on both sides: card against CPU,
            losses, every gradient and the BN running statistics, with the
            bars set out in phase_train_parity.
+9. export  the eval pipeline: a DTU eval-release tree of 800×640 JPEGs
+           (scan 1, 5 views, D=96) written by the port's JPEG writer; the
+           test CLI (configs/dtu_wde3.yaml, bf16, TEST.WEIGHT = the train
+           phase's last checkpoint) decodes, scales by 0.8 to 640×512 and
+           exports 5 maps, each with exactly 3 kNN and 9 masked-max
+           launches; one exported flow3 map against Predictor on the same
+           item; the fuse CLI with the torch backend on the card, with
+           numpy and with torch on the CPU, each pair held to the JAX
+           package's bar between its backends (equal counts, 1e-3).
+10. fusion-scan  both fusion backends on 49 noisy true depth maps of
+           640×512 (a DTU eval scan's view count) at the fuse CLI's
+           defaults: times, the card's peak memory, each cloud's accuracy
+           / completeness against the scene; the card held to torch on the
+           CPU on 9 of the maps (bars in phase_fusion_scan).
 
 Then a JSON line of per-kernel numbers (``launches`` per serving request),
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Imports
@@ -580,10 +594,11 @@ def phase_train_parity():
               f"BN statistics max |Δ| {sdiff:.2e}", flush=True)
 
 
-def phase_train(dev):
+def phase_train(dev, keep_ckpt: str):
     """train() at the reference training config on a synthetic DTU tree
     written by the port, then a resume; launches, step time, memory and a
-    profiled step. → {kernel: launches per flow step / per val batch}."""
+    profiled step. The last checkpoint is copied to ``keep_ckpt`` before
+    the tree goes. → {kernel: launches per flow step / per val batch}."""
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset.build import build_data_loader
     from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
@@ -660,9 +675,259 @@ def phase_train(dev):
               f"{ {k: round(float(v), 4) for k, v in losses.items() if k.endswith('loss')} }",
               flush=True)
         profile_call(lambda: step(state, batch), f"train step (B={b})")
+        shutil.copy(os.path.join(out, "checkpoints", f"{cfg.SCHEDULER.MAX_EPOCH - 1}.pt"),
+                    keep_ckpt)
         return {"window_knn": (n_flow, vgot[0]), "masked_window_max": (0, vgot[1])}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def compare_clouds(a: np.ndarray, b: np.ndarray) -> dict:
+    """Two fused clouds of one scan, each in the fusion order (reference
+    view major, pixels row-major) → counts, and where they are equal the
+    largest point gap, the points more than 1e-3 apart and the points
+    whose bits differ; else the share of each cloud within 1e-3 of a point
+    of the other."""
+    out = {"n": (len(a), len(b))}
+    if len(a) == len(b):
+        gap = np.abs(a - b).max(1) if len(a) else np.zeros(0, np.float32)
+        out.update(max_abs=float(gap.max(initial=0.0)), over_1e3=int((gap > 1e-3).sum()),
+                   bits_differ=int((a != b).any(1).sum()))
+    elif len(a) and len(b):
+        from scipy.spatial import cKDTree
+        out["matched"] = [float((cKDTree(y).query(x, k=1)[0] <= 1e-3).mean())
+                          for x, y in ((a, b), (b, a))]
+    return out
+
+
+def clouds_agree(c: dict) -> bool:
+    """The JAX package's bar between its two fusion backends
+    (tests/test_postprocess.py::test_fusion_jax_matches_numpy): equal
+    point counts, points within 1e-3."""
+    return c["n"][0] == c["n"][1] and c["max_abs"] <= 1e-3
+
+
+def phase_export(weight: str, work: str):
+    """The eval pipeline on the card (see the module docstring). →
+    launches per exported map (kNN, masked max).
+
+    The smoke-trained weights' probabilities are below the fuse CLI's
+    default 0.8 (no point survives), so fusion runs at prob 0 and 2 views.
+    It runs three times on the same export: the torch backend on the card,
+    the numpy backend, and the torch backend on the CPU; each pair is held
+    to the JAX package's bar between its backends (``clouds_agree``)."""
+    from pointmvsnet_tpu_torch import fuse
+    from pointmvsnet_tpu_torch import test as test_cli
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.dataset import io
+    from pointmvsnet_tpu_torch.dataset.dtu import DTUTestDataset
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu, plane_depths
+    from pointmvsnet_tpu_torch.ops import edge, knn
+    from pointmvsnet_tpu_torch.postprocess import read_ply
+    from pointmvsnet_tpu_torch.predictor import Predictor
+
+    h, w, views, depths = 640, 800, 5, 96
+    tree = os.path.join(work, "dtu_eval")
+    t0 = time.perf_counter()
+    make_synthetic_dtu(tree, scans=[1], layout="eval", num_views=views, height=h, width=w,
+                       num_depth=depths)
+    t_tree = time.perf_counter() - t0
+    jpgs = sorted(os.path.join(tree, "Eval", "scan1", "images", f) for f in
+                  os.listdir(os.path.join(tree, "Eval", "scan1", "images")))
+    t_dec, t_enc, nbytes = [], [], []
+    for p in jpgs:
+        t0 = time.perf_counter()
+        img = io.read_jpeg(p)
+        t_dec.append(time.perf_counter() - t0)
+        check(img.shape == (h, w, 3), f"export: {p} decodes to {img.shape}")
+        t0 = time.perf_counter()
+        io.write_jpeg(os.path.join(work, "again.jpg"), img)
+        t_enc.append(time.perf_counter() - t0)
+        nbytes.append(os.path.getsize(p))
+    print(f"export: eval tree {w}x{h}, {views} views, D={depths}, in {t_tree:.2f} s; JPEG "
+          f"{np.mean(nbytes) / 1e3:.1f} kB per image, read_jpeg {1e3 * np.mean(t_dec):.1f} ms "
+          f"and write_jpeg {1e3 * np.mean(t_enc):.1f} ms per image (host, mean of {views}); "
+          f"{smi_line()}", flush=True)
+
+    out = os.path.join(work, "export")
+    cfg_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "dtu_wde3.yaml")
+    args = ["--cfg", cfg_file, "--device", "cuda", "MODEL.DTYPE", "bfloat16",
+            "DATA.TEST.ROOT_DIR", tree, "DATA.TEST.NUM_VIEW", str(views),
+            "DATA.TEST.NUM_VIRTUAL_PLANE", str(depths), "OUTPUT_DIR", out,
+            "TEST.WEIGHT", weight]
+    knn.launches = edge.launches = 0
+    t0 = time.perf_counter()
+    summary, depth_dir = test_cli.main(args)
+    t_cli = time.perf_counter() - t0
+    nk, ne = knn.launches, edge.launches
+    n_maps = summary["maps"]
+    check(n_maps == views, f"export: {n_maps} maps, want {views}")
+    check(nk == 3 * n_maps and ne == 9 * n_maps,
+          f"export: {nk} kNN and {ne} masked-max launches for {n_maps} maps, want 3 and 9 each")
+    scan_dir = os.path.join(depth_dir, "scan1")
+    want = {f"{v:08d}{s}" for v in range(views)
+            for s in ("_init.pfm", "_flow1.pfm", "_flow2.pfm", "_flow3.pfm", "_prob.pfm",
+                      ".txt", ".png")}
+    check(set(os.listdir(scan_dir)) == want, f"export: files {sorted(os.listdir(scan_dir))}")
+    flow3 = io.load_pfm(os.path.join(scan_dir, "00000000_flow3.pfm"))
+    check(np.isfinite(flow3).all(), "export: non-finite flow3")
+    print(f"export: test CLI bf16, {n_maps} maps of {flow3.shape[1]}x{flow3.shape[0]}: "
+          f"{summary['maps_per_s']:.3f} maps/s over the loop, "
+          f"{summary['maps_per_s_after_first']:.3f} maps/s after the first map (which "
+          f"decodes all {views} views; each view is decoded once), {t_cli:.1f} s with model "
+          f"build and weight load; launches per map kNN {nk // n_maps} masked-max "
+          f"{ne // n_maps}; {smi_line()}", flush=True)
+
+    # the same item through the serving front end
+    cfg = get_default_cfg()
+    cfg.merge_from_file(cfg_file)
+    cfg.merge_from_list(args[4:])
+    ds = DTUTestDataset(tree, num_view=views, num_virtual_plane=depths,
+                        interval_scale=cfg.DATA.TEST.INTERVAL_SCALE,
+                        img_height=cfg.DATA.TEST.IMG_HEIGHT, img_width=cfg.DATA.TEST.IMG_WIDTH)
+    item = ds[ds.index.index((1, 0))]
+    sd = torch.load(weight, map_location="cpu", weights_only=True)["model"]
+    served = Predictor(cfg, sd, device="cuda", normalize=False)(item["images"], item["cams"])
+    cam = item["cams"][0]
+    span = (depths - 1) * float(cam[1, 3, 1])
+    gap = float(np.abs(served["flow3"] - flow3).max())
+    check(served["flow3"].shape == flow3.shape and gap <= 1e-3 * span,
+          f"export vs serving: flow3 max |Δ| {gap} (bar {1e-3 * span})")
+    raw = io.load_cam(os.path.join(tree, "Eval", "scan1", "cams", "00000000_cam.txt"))
+    d_lo, d_hi = plane_depths(float(raw[1, 3, 0]), float(raw[1, 3, 1]), depths)
+    true3 = np.where(np.arange(flow3.shape[1]) < flow3.shape[1] // 2, d_lo, d_hi)[None, :]
+    print(f"export: exported flow3 of view 0 against Predictor on the same item: "
+          f"{'bit-equal' if gap == 0 else f'max |Δ| {gap:.3e}'} (bar {1e-3 * span:.3f}, "
+          f"1e-3 of the {span:.1f} depth range); its mean |depth − true| "
+          f"{float(np.abs(flow3 - true3).mean()):.2f} (planes at {d_lo:.2f} / {d_hi:.2f})",
+          flush=True)
+
+    clouds, secs = {}, {}
+    for label, backend, dev in (("card", "torch", "cuda"), ("numpy", "numpy", "cuda"),
+                                ("cpu", "torch", "cpu")):
+        t0 = time.perf_counter()
+        r = fuse.main(["--depth_dir", depth_dir, "--out", os.path.join(work, f"clouds_{label}"),
+                       "--backend", backend, "--device", dev, "--prob_threshold", "0",
+                       "--min_views", "2"])["scan1"]
+        secs[label] = time.perf_counter() - t0
+        check(r["backend"] == backend, f"fuse: scan1 took {r['backend']}")
+        clouds[label] = read_ply(r["ply"])[0]
+        check(len(clouds[label]) > 0 and np.isfinite(clouds[label]).all(),
+              f"fuse {label}: {len(clouds[label])} points, or not finite")
+    pairs = {f"{a}-{b}": compare_clouds(clouds[a], clouds[b])
+             for a, b in (("card", "numpy"), ("card", "cpu"), ("cpu", "numpy"))}
+    print(f"export: fuse CLI at prob 0, 2 views, {views} maps of {flow3.shape[1]}x"
+          f"{flow3.shape[0]}: torch on the card {secs['card']:.3f} s, numpy "
+          f"{secs['numpy']:.3f} s, torch on the CPU {secs['cpu']:.3f} s (CLI wall, PFM reads "
+          f"and PLY write included); clouds {json.dumps(pairs)}; {smi_line()}", flush=True)
+    for name, c in pairs.items():
+        check(clouds_agree(c), f"fuse {name}: {c}")
+    return nk // n_maps, ne // n_maps
+
+
+def fusion_scan_scene():
+    """49 depth maps of 640×512 (the DTU eval release's view count, at the
+    paper-eval map size) of the two-plane scene, seen by cameras on a 7×7
+    grid 5.1 apart: each map the scene's true depth plus N(0, 0.05²)
+    noise, probabilities uniform in [0.5, 1). → (depths, cams, probs,
+    (d_lo, d_hi), focal length)."""
+    from pointmvsnet_tpu_torch.dataset.synthetic import plane_depths
+
+    h, w, f, step = 512, 640, 768.0, 425.0 * 0.012
+    d_lo, d_hi = plane_depths(425.0, 2.5, 96)
+    # the planes are what camera 0 sees: the left half at d_lo, the right at d_hi
+    extent = {d_lo: (-w / 2 * d_lo / f, 0.0), d_hi: (0.0, w / 2 * d_hi / f)}
+    rng = np.random.RandomState(0)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    depths, cams, probs = [], [], []
+    for gy in range(-3, 4):
+        for gx in range(-3, 4):
+            cam = np.zeros((2, 4, 4), np.float32)
+            cam[0] = np.eye(4)
+            cam[0, :2, 3] = -gx * step, -gy * step
+            cam[1, :3, :3] = [[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]]
+            cam[1, 3] = [425.0, 2.5, 96, 425.0 + 95 * 2.5]
+            d = np.zeros((h, w))
+            for z in (d_hi, d_lo):                    # the nearer plane last: it occludes
+                x_w = (xs - w / 2) * z / f + gx * step
+                y_w = (ys - h / 2) * z / f + gy * step
+                d[(x_w >= extent[z][0]) & (x_w < extent[z][1])
+                  & (np.abs(y_w) <= h / 2 * z / f)] = z
+            d = np.where(d > 0, d + rng.randn(h, w) * 0.05, 0.0)
+            depths.append(d.astype(np.float32))
+            cams.append(cam)
+            probs.append((0.5 + 0.5 * rng.rand(h, w)).astype(np.float32))
+    return depths, cams, probs, (d_lo, d_hi), f
+
+
+def phase_fusion_scan():
+    """Both fusion backends on ``fusion_scan_scene`` at the fuse CLI's
+    defaults (prob > 0.8, 3 views) and its view graph (every other map):
+    times, the card's peak memory, and each cloud against the scene's
+    planes (``point_cloud_metrics`` and the distance to the nearer plane).
+
+    The card is held to the torch backend on the CPU (``clouds_agree``)
+    on the centre 3×3 cameras: the same operations, so the card's
+    arithmetic is the CPU's. The card against numpy on all 49 maps is
+    printed, not held to that bar: numpy's BLAS rounds the projection
+    differently in the last bit, and a projected coordinate within that
+    bit of a half pixel then samples the neighbouring pixel (PERF.md §6
+    traces one such point); with noisy maps that moves a fused depth by
+    up to a few hundredths."""
+    from pointmvsnet_tpu_torch.postprocess import fuse_depth_maps, point_cloud_metrics
+    from pointmvsnet_tpu_torch.postprocess.fusion_torch import fuse_depth_maps_torch
+
+    t0 = time.perf_counter()
+    depths, cams, probs, (d_lo, d_hi), f = fusion_scan_scene()
+    t_scene = time.perf_counter() - t0
+    h, w = depths[0].shape
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+
+    centre = [r * 7 + c for r in (2, 3, 4) for c in (2, 3, 4)]
+    sub = ([depths[i] for i in centre], [cams[i] for i in centre])
+    sub_probs = [probs[i] for i in centre]
+    c9 = compare_clouds(fuse_depth_maps_torch(*sub, probs=sub_probs, device="cuda")[0],
+                        fuse_depth_maps_torch(*sub, probs=sub_probs, device="cpu")[0])
+    print(f"fusion-scan: centre 9 of the 49 maps, torch on the card against torch on the "
+          f"CPU: {json.dumps(c9)}", flush=True)
+    check(clouds_agree(c9), f"fusion-scan: card against CPU {c9}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pts, _ = fuse_depth_maps_torch(depths, cams, probs=probs, device="cuda")
+        times.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    t0 = time.perf_counter()
+    npts, _ = fuse_depth_maps(depths, cams, probs=probs)
+    t_np = time.perf_counter() - t0
+    c = compare_clouds(pts, npts)
+    gt_d = np.where(xs < w / 2, d_lo, d_hi).ravel()
+    gt = np.stack([(xs.ravel() - w / 2) * gt_d / f, (ys.ravel() - h / 2) * gt_d / f, gt_d],
+                  -1).astype(np.float32)
+    quality = {}
+    for name, cloud in (("card", pts), ("numpy", npts)):
+        check(len(cloud) > 0 and np.isfinite(cloud).all(), f"fusion-scan {name}: {len(cloud)} points")
+        t0 = time.perf_counter()
+        m = point_cloud_metrics(cloud[::16], gt)
+        z_err = np.minimum(np.abs(cloud[:, 2] - d_lo), np.abs(cloud[:, 2] - d_hi))
+        quality[name] = dict(m, z_err_mean=float(z_err.mean()), z_err_max=float(z_err.max()),
+                             seconds=time.perf_counter() - t0)
+        # each fused depth averages at least 4 maps' N(0, 0.05²) noise; a point on its
+        # plane lies within s/√2 of camera 0's pixel grid, of spacing s ≤ d_hi / f
+        check(z_err.mean() < 0.05, f"fusion-scan {name}: mean |z − plane| {z_err.mean()}")
+        check(m["accuracy"] < 0.75 * d_hi / f, f"fusion-scan {name}: accuracy {m['accuracy']}")
+    print(f"fusion-scan: 49 maps of {w}x{h} (scene built in {t_scene:.1f} s), prob > 0.8, "
+          f"3 views, all 48 others as sources: {len(pts)} points; torch on the card "
+          f"{times[0]:.3f} s first call, {times[1]:.3f} s second (host to host: stacking, "
+          f"copies, the sweep, the masks), peak device memory {peak:.2f} GiB above the "
+          f"{base / 2 ** 30:.2f} GiB held before; numpy {t_np:.3f} s; card against numpy "
+          f"{json.dumps(c)}; every 16th point against the planes as camera 0's pixels give "
+          f"them, and every point's |z − nearer plane|: {json.dumps(quality)}; {smi_line()}",
+          flush=True)
 
 
 def profile_call(fn, what: str, top: int = 12):
@@ -721,9 +986,16 @@ def main() -> int:
     gat = phase_gather(dev)
     phase_parity()
     n_knn, n_mwm = phase_serve()
-    per_train = phase_train(dev)
-    phase_edge_conv_backward()
-    phase_train_parity()
+    work = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        weight = os.path.join(work, "trained.pt")
+        per_train = phase_train(dev, weight)
+        phase_edge_conv_backward()
+        phase_train_parity()
+        per_map = phase_export(weight, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_fusion_scan()
 
     rows = []
     for name, line, launches in [("window_knn", "knn.py:40", n_knn),
@@ -742,6 +1014,7 @@ def main() -> int:
             "launches_per": "serving request",
             "launches_per_train_step": per_train[name][0],
             "launches_per_val_batch": per_train[name][1],
+            "launches_per_exported_map": per_map[0 if name == "window_knn" else 1],
         })
     rows.append({
         "name": "window_gather", "route": "cuda",

@@ -1,7 +1,8 @@
 """Batch loader: collation, shuffling, background prefetch. The port's copy
-of ``pointmvsnet_tpu/dataset/build.py`` (numpy batches; the train step
-moves them to the device). Only the train and val splits are ported; the
-test split waits for the test-CLI slice.
+of ``pointmvsnet_tpu/dataset/build.py`` (numpy batches; the train and eval
+steps move them to the device): the train and val splits of the DTU
+training release, and the test split of DTU or Tanks & Temples
+(``DATA.TEST.DATASET``).
 """
 
 from __future__ import annotations
@@ -23,21 +24,25 @@ PREFETCH = 2       # batches decoded ahead by the worker thread
 
 
 class DataLoader:
-    """Minimal epoch-based loader. The last partial batch is dropped, so
-    every batch has the same shape; ``num_workers`` > 0 decodes batches in
-    one background thread, ``PREFETCH`` batches ahead."""
+    """Minimal epoch-based loader. With ``drop_last`` the last partial
+    batch is dropped, so every batch has the same shape (training);
+    without it the last batch is shorter (the test split exports every
+    view). ``num_workers`` > 0 decodes batches in one background thread,
+    ``PREFETCH`` batches ahead."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 seed: int = 0, num_workers: int = 0):
+                 seed: int = 0, num_workers: int = 0, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = num_workers
+        self.drop_last = drop_last
         self._epoch = 0
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
@@ -94,13 +99,26 @@ class DataLoader:
 
 
 def build_data_loader(cfg, mode: str = "train") -> DataLoader:
-    """cfg → the loader of the "train" or "val" split."""
-    from pointmvsnet_tpu_torch.dataset.dtu import DTUTrainValDataset
+    """cfg → the loader of the "train", "val" or "test" split."""
+    from pointmvsnet_tpu_torch.dataset.dtu import DTUTestDataset, DTUTrainValDataset
 
-    if mode == "test":
-        raise NotImplementedError("the test split is not ported yet (test-CLI slice)")
-    if mode not in ("train", "val"):
+    if mode not in ("train", "val", "test"):
         raise ValueError(f"mode {mode!r}: want 'train', 'val' or 'test'")
+    if mode == "test":
+        t = cfg.DATA.TEST
+        kw = dict(num_view=t.NUM_VIEW, num_virtual_plane=t.NUM_VIRTUAL_PLANE,
+                  interval_scale=t.INTERVAL_SCALE, img_height=t.IMG_HEIGHT,
+                  img_width=t.IMG_WIDTH)
+        if t.DATASET == "tanks":
+            from pointmvsnet_tpu_torch.dataset.tanks import TanksDataset
+            ds = TanksDataset(t.ROOT_DIR, rescale_depth=t.RESCALE_DEPTH,
+                              shape_set=tuple(t.SHAPE_SET) or None, **kw)
+        elif t.DATASET == "dtu":
+            ds = DTUTestDataset(t.ROOT_DIR, **kw)
+        else:
+            raise ValueError(f"DATA.TEST.DATASET={t.DATASET!r}: want 'dtu' or 'tanks'")
+        return DataLoader(ds, cfg.TEST.BATCH_SIZE, shuffle=False, drop_last=False,
+                          num_workers=cfg.DATA.NUM_WORKERS)
     split = cfg.DATA.TRAIN if mode == "train" else cfg.DATA.VAL
     ds = DTUTrainValDataset(
         split.ROOT_DIR, mode=mode,

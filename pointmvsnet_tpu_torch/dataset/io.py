@@ -1,7 +1,9 @@
-"""MVSNet-format file I/O and PNG, numpy and the standard library only: the
-port's copy of ``pointmvsnet_tpu/dataset/io.py`` (PFM, cam.txt, pair.txt;
-the Python paths, not the C++ data plane) plus ``read_png`` / ``write_png``,
-which take the place of the JAX package's ``cv2.imread`` / ``cv2.imwrite``.
+"""MVSNet-format file I/O and images, numpy and the standard library only:
+the port's copy of ``pointmvsnet_tpu/dataset/io.py`` (PFM, cam.txt,
+pair.txt; the Python paths, not the C++ data plane) plus ``read_png`` /
+``write_png``, ``read_jpeg`` / ``write_jpeg`` (``dataset/jpeg.py``) and
+``read_image``, which take the place of the JAX package's ``cv2.imread`` /
+``cv2.imwrite``.
 
 cam.txt::
 
@@ -33,6 +35,8 @@ import zlib
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from pointmvsnet_tpu_torch.dataset.jpeg import read_jpeg, write_jpeg  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # PFM
@@ -287,3 +291,15 @@ def write_png(path: str, img: np.ndarray, filters: int | Sequence[int] = 2) -> N
         f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(_filter_rows(img, ftype).tobytes())))
         f.write(chunk(b"IEND", b""))
+
+
+def read_image(path: str) -> np.ndarray:
+    """Read a PNG or a JPEG, told apart by their first bytes as
+    ``cv2.imread`` does → (H, W, 3) uint8 RGB."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head.startswith(_PNG_SIG):
+        return read_png(path)
+    if head.startswith(b"\xff\xd8"):
+        return read_jpeg(path)
+    raise ValueError(f"{path!r} is neither a PNG nor a JPEG (first bytes {head!r})")

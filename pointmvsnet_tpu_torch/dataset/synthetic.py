@@ -1,7 +1,10 @@
 """Synthetic MVS scenes: the port's numpy-only copy of
-``pointmvsnet_tpu/dataset/synthetic.py :: make_scene_batch`` (in memory) and
-``make_synthetic_dtu`` (a DTU training-release tree on disk, PNGs written
-by ``dataset/io.py::write_png``).
+``pointmvsnet_tpu/dataset/synthetic.py :: make_scene_batch`` (in memory),
+``make_synthetic_dtu`` (a DTU training-release tree of PNGs or an
+eval-release tree of JPEGs on disk) and ``make_synthetic_tanks`` (a Tanks
+& Temples tree of JPEGs). Files keep the JAX package's names and layouts;
+PNGs are written by ``dataset/io.py::write_png``, JPEGs by
+``dataset/jpeg.py::write_jpeg``.
 
 Two textured fronto-parallel half-planes seen by cameras translated along
 x, so the true depth is known and plane-sweep stereo can recover it. The
@@ -19,7 +22,7 @@ from typing import Sequence
 
 import numpy as np
 
-from pointmvsnet_tpu_torch.dataset.io import write_cam, write_pfm, write_png
+from pointmvsnet_tpu_torch.dataset.io import write_cam, write_jpeg, write_pfm, write_png
 from pointmvsnet_tpu_torch.dataset.preprocess import norm_image
 
 
@@ -84,6 +87,13 @@ def _make_cams(num_views: int, height: int, width: int, depth_min: float,
     return cams, f, baseline
 
 
+def plane_depths(depth_min: float, depth_interval: float, num_depth: int):
+    """Depths of the left and right half-planes: at 25% and 70% of the
+    hypothesis range."""
+    return (depth_min + 0.25 * (num_depth - 1) * depth_interval,
+            depth_min + 0.70 * (num_depth - 1) * depth_interval)
+
+
 def _render_two_planes(v, f, baseline, height, width, d_lo, d_hi,
                        tex_l, tex_r) -> np.ndarray:
     """View v of the two textured half-planes (float RGB in [0, 255])."""
@@ -106,8 +116,7 @@ def make_scene_batch(batch: int, num_views: int, height: int, width: int,
     cams (B, V, 2, 4, 4) float32, gt_depth (B, H, W) float32)."""
     cams, f, baseline = _make_cams(num_views, height, width, depth_min,
                                    depth_interval, num_depth)
-    d_lo = depth_min + 0.25 * (num_depth - 1) * depth_interval
-    d_hi = depth_min + 0.70 * (num_depth - 1) * depth_interval
+    d_lo, d_hi = plane_depths(depth_min, depth_interval, num_depth)
     split = width // 2
 
     images = np.zeros((batch, num_views, height, width, 3), np.float32)
@@ -126,26 +135,9 @@ def make_scene_batch(batch: int, num_views: int, height: int, width: int,
     return images, np.ascontiguousarray(cam_batch, np.float32), gt
 
 
-def make_synthetic_dtu(root: str, scans: Sequence[int] = (1,), num_views: int = 5,
-                       height: int = 128, width: int = 160, depth_min: float = 425.0,
-                       depth_interval: float = 2.5, num_depth: int = 48,
-                       num_lights: int = 7, seed: int = 0,
-                       layout: str = "train") -> None:
-    """Create a DTU training-release tree under ``root``: shared
-    ``Cameras/`` (cams + pair.txt), ``Rectified/scan{n}_train/`` PNGs for
-    every view and light (gain 0.75 + 0.08·light), ``Depths/scan{n}_train/``
-    PFMs. The scene is the two textured half-planes of ``make_scene_batch``;
-    each view's depth map sees them shifted by its disparity. The eval
-    layout (JPEGs) waits for the test-CLI slice."""
-    if layout != "train":
-        raise NotImplementedError(f"layout {layout!r} is not ported yet (test-CLI slice)")
-    rng = np.random.RandomState(seed)
-    cams, f, baseline = _make_cams(num_views, height, width, depth_min,
-                                   depth_interval, num_depth)
-    os.makedirs(os.path.join(root, "Cameras"), exist_ok=True)
-    for v in range(num_views):
-        write_cam(os.path.join(root, "Cameras", f"{v:08d}_cam.txt"), cams[v])
-    with open(os.path.join(root, "Cameras", "pair.txt"), "w") as fp:
+def _write_pair(path: str, num_views: int) -> None:
+    """pair.txt: every other view is a source of v, nearest first."""
+    with open(path, "w") as fp:
         fp.write(f"{num_views}\n")
         for v in range(num_views):
             others = [u for u in sorted(range(num_views), key=lambda u: (abs(u - v), u))
@@ -154,20 +146,93 @@ def make_synthetic_dtu(root: str, scans: Sequence[int] = (1,), num_views: int = 
                      + " ".join(f"{u} {100.0 - 10 * i}" for i, u in enumerate(others))
                      + "\n")
 
-    d_lo = depth_min + 0.25 * (num_depth - 1) * depth_interval
-    d_hi = depth_min + 0.70 * (num_depth - 1) * depth_interval
+
+def _render_u8(v, f, baseline, height, width, d_lo, d_hi, tex_l, tex_r) -> np.ndarray:
+    img = _render_two_planes(v, f, baseline, height, width, d_lo, d_hi, tex_l, tex_r)
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def make_synthetic_tanks(root: str, scenes: Sequence[str] = ("Family",),
+                         num_views: int = 5, height: int = 128,
+                         width: int = 160, depth_min: float = 425.0,
+                         depth_interval: float = 2.5, num_depth: int = 96,
+                         seed: int = 0, per_scene: dict | None = None) -> None:
+    """Create a Tanks & Temples-layout tree under ``root``
+    (``<scene>/pair.txt``, ``<scene>/cams/{v:08d}_cam.txt``,
+    ``<scene>/images/{v:08d}.jpg``) with the two-plane scene.
+    ``per_scene``: optional {scene: {height / width / num_depth /
+    depth_interval: ...}} overrides (ragged resolutions, per-scene depth
+    sampling in the cam files)."""
+    rng = np.random.RandomState(seed)
+    for scene in scenes:
+        ov = dict(per_scene.get(scene, {})) if per_scene else {}
+        s_h = int(ov.get("height", height))
+        s_w = int(ov.get("width", width))
+        s_nd = int(ov.get("num_depth", num_depth))
+        s_di = float(ov.get("depth_interval", depth_interval))
+        cams, f, baseline = _make_cams(num_views, s_h, s_w, depth_min, s_di, s_nd)
+        d_lo, d_hi = plane_depths(depth_min, s_di, s_nd)
+        sd = os.path.join(root, scene)
+        os.makedirs(os.path.join(sd, "cams"), exist_ok=True)
+        os.makedirs(os.path.join(sd, "images"), exist_ok=True)
+        _write_pair(os.path.join(sd, "pair.txt"), num_views)
+        tex_l = _texture(rng, s_h, s_w)
+        tex_r = _texture(rng, s_h, s_w)
+        for v in range(num_views):
+            write_cam(os.path.join(sd, "cams", f"{v:08d}_cam.txt"), cams[v])
+            write_jpeg(os.path.join(sd, "images", f"{v:08d}.jpg"),
+                       _render_u8(v, f, baseline, s_h, s_w, d_lo, d_hi, tex_l, tex_r))
+
+
+def make_synthetic_dtu(root: str, scans: Sequence[int] = (1,), num_views: int = 5,
+                       height: int = 128, width: int = 160, depth_min: float = 425.0,
+                       depth_interval: float = 2.5, num_depth: int = 48,
+                       num_lights: int = 7, seed: int = 0,
+                       layout: str = "train") -> None:
+    """Create a DTU-layout tree under ``root``.
+
+    ``layout="train"``: the training release, shared ``Cameras/`` (cams +
+    pair.txt), ``Rectified/scan{n}_train/`` PNGs for every view and light
+    (gain 0.75 + 0.08·light), ``Depths/scan{n}_train/`` PFMs (each view's
+    depth map sees the planes shifted by its disparity).
+    ``layout="eval"``: the eval release,
+    ``Eval/scan{n}/{images,cams}/{view:08d}.{jpg,txt}`` and a per-scan
+    ``pair.txt``, no depth. The scene is the two textured half-planes of
+    ``make_scene_batch``."""
+    if layout not in ("train", "eval"):
+        raise ValueError(f"layout {layout!r}: want 'train' or 'eval'")
+    rng = np.random.RandomState(seed)
+    cams, f, baseline = _make_cams(num_views, height, width, depth_min,
+                                   depth_interval, num_depth)
+    if layout == "train":
+        os.makedirs(os.path.join(root, "Cameras"), exist_ok=True)
+        for v in range(num_views):
+            write_cam(os.path.join(root, "Cameras", f"{v:08d}_cam.txt"), cams[v])
+        _write_pair(os.path.join(root, "Cameras", "pair.txt"), num_views)
+
+    d_lo, d_hi = plane_depths(depth_min, depth_interval, num_depth)
     split = width // 2
     for scan in scans:
-        img_dir = os.path.join(root, "Rectified", f"scan{scan}_train")
-        dep_dir = os.path.join(root, "Depths", f"scan{scan}_train")
-        os.makedirs(img_dir, exist_ok=True)
-        os.makedirs(dep_dir, exist_ok=True)
+        if layout == "eval":
+            scan_dir = os.path.join(root, "Eval", f"scan{scan}")
+            img_dir = os.path.join(scan_dir, "images")
+            os.makedirs(img_dir, exist_ok=True)
+            os.makedirs(os.path.join(scan_dir, "cams"), exist_ok=True)
+            for v in range(num_views):
+                write_cam(os.path.join(scan_dir, "cams", f"{v:08d}_cam.txt"), cams[v])
+            _write_pair(os.path.join(scan_dir, "pair.txt"), num_views)
+        else:
+            img_dir = os.path.join(root, "Rectified", f"scan{scan}_train")
+            dep_dir = os.path.join(root, "Depths", f"scan{scan}_train")
+            os.makedirs(img_dir, exist_ok=True)
+            os.makedirs(dep_dir, exist_ok=True)
         tex_l = _texture(rng, height, width)
         tex_r = _texture(rng, height, width)
         for v in range(num_views):
-            img = _render_two_planes(v, f, baseline, height, width, d_lo, d_hi,
-                                     tex_l, tex_r)
-            img = np.clip(np.rint(img), 0, 255).astype(np.uint8)
+            img = _render_u8(v, f, baseline, height, width, d_lo, d_hi, tex_l, tex_r)
+            if layout == "eval":
+                write_jpeg(os.path.join(img_dir, f"{v:08d}.jpg"), img)
+                continue
             for light in range(num_lights):
                 gain = 0.75 + 0.08 * light
                 out = np.clip(img.astype(np.float32) * gain, 0, 255).astype(np.uint8)

@@ -1,0 +1,131 @@
+"""Evaluation / depth-map export entry point: counterpart of
+``pointmvsnet_tpu/test.py``.
+
+    python -m pointmvsnet_tpu_torch.test [--cfg configs/dtu_wde3.yaml] \\
+        [--device cuda|cpu] TEST.WEIGHT <ckpt.pt or dir> DATA.TEST.ROOT_DIR ...
+
+No-grad loop over the test split (DTU or Tanks & Temples) at the eval
+settings, per-batch losses and depth metrics where the split has GT
+depth, and the MVSNet-format export that ``fuse.py`` reads
+(``OUTPUT_DIR/depths/scan<n>/``). The weights come from ``TEST.WEIGHT``,
+else from the newest checkpoint under ``OUTPUT_DIR/checkpoints``, else
+from ``cfg.RNG_SEED`` (``utils.convert.init_params``, as ``Predictor``).
+One card; band- and view-parallel eval (``PARALLEL.BAND`` / ``VIEW`` > 1)
+are not ported (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Optional
+
+import torch
+
+from pointmvsnet_tpu_torch import resolve_device
+from pointmvsnet_tpu_torch.config import get_default_cfg
+from pointmvsnet_tpu_torch.dataset.build import build_data_loader
+from pointmvsnet_tpu_torch.models import build_loss_fn, build_model, pointmvsnet_metrics
+from pointmvsnet_tpu_torch.parallel import TrainState, make_eval_step, put_batch
+from pointmvsnet_tpu_torch.utils.checkpoint import Checkpointer
+from pointmvsnet_tpu_torch.utils.convert import init_params
+from pointmvsnet_tpu_torch.utils.eval_file_logger import eval_file_logger
+from pointmvsnet_tpu_torch.utils.logger import setup_logger
+from pointmvsnet_tpu_torch.utils.metric_logger import MetricLogger
+from pointmvsnet_tpu_torch.utils.solver import build_optimizer
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Point-MVSNet evaluation (PyTorch port)")
+    p.add_argument("--cfg", default="", help="config YAML path (needs PyYAML)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("opts", nargs=argparse.REMAINDER,
+                   help="dotted-path config overrides, e.g. TEST.WEIGHT out/checkpoints")
+    return p.parse_args(argv)
+
+
+def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda"):
+    """Export every item of the test split. → (summary, depth dir): the
+    meters' averages (losses and metrics where there is GT), ``maps``,
+    ``maps_per_s`` (host clock over the loop, loading included) and
+    ``maps_per_s_after_first`` (the same without the first batch, which
+    also pays the first decode of its views and the kernels' warm-up;
+    NaN for a loop of one batch)."""
+    for key in ("BAND", "VIEW"):
+        if cfg.PARALLEL[key] > 1:
+            raise NotImplementedError(
+                f"PARALLEL.{key}={cfg.PARALLEL[key]}: band- and view-parallel eval are "
+                f"not ported (ROADMAP queue 1); the port evaluates on one card")
+    dev = resolve_device(device)
+    logger = setup_logger("pointmvsnet_tpu_torch.test", output_dir)
+    model = build_model(cfg, dev)
+    loader = build_data_loader(cfg, "test")
+    kwargs = dict(
+        is_flow=cfg.MODEL.NAME != "mvsnet",
+        img_scales=tuple(cfg.MODEL.TEST.IMG_SCALES),
+        inter_scales=tuple(cfg.MODEL.TEST.INTER_SCALES),
+        num_virtual_plane=cfg.DATA.TEST.NUM_VIRTUAL_PLANE,
+    )
+    state = TrainState(model, build_optimizer(cfg, dict(model.named_parameters())))
+    checkpointer = Checkpointer(os.path.join(output_dir, "checkpoints"))
+    if cfg.TEST.WEIGHT or checkpointer.latest_epoch() is not None:
+        state, _ = checkpointer.load(state, resume=True, path=cfg.TEST.WEIGHT)
+        logger.info("weights: %s", cfg.TEST.WEIGHT or checkpointer.directory)
+    else:
+        model.load_state_dict(init_params(model, torch.Generator().manual_seed(cfg.RNG_SEED)))
+        logger.info("weights: none given, drawn from RNG_SEED=%d", cfg.RNG_SEED)
+
+    eval_step = make_eval_step(build_loss_fn(cfg), pointmvsnet_metrics, kwargs)
+    meters = MetricLogger()
+    depth_dir = os.path.join(output_dir, "depths")
+    os.makedirs(depth_dir, exist_ok=True)
+
+    n_maps = n_first = 0
+    t_start = t_first = time.time()
+    for it, batch in enumerate(loader):
+        if max_batches and it >= max_batches:
+            break
+        preds, losses, metrics = eval_step(state, put_batch(batch, dev))
+        preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
+        for b in range(batch["images"].shape[0]):
+            eval_file_logger(batch, preds, depth_dir, batch_index=b)
+            n_maps += 1
+        meters.update(**{k: float(v) for k, v in losses.items()},
+                      **{k: float(v) for k, v in metrics.items()})
+        if it == 0:
+            n_first, t_first = n_maps, time.time()
+        if it % cfg.TEST.LOG_PERIOD == 0:
+            logger.info("test iter %d/%d  %s", it, len(loader), meters)
+    t_end = time.time()
+    elapsed = t_end - t_start
+    after_first = (n_maps - n_first) / (t_end - t_first) if n_maps > n_first else float("nan")
+    if n_maps:
+        logger.info("exported %d depth maps in %.1fs (%.3f maps/s; %.3f after the first batch)",
+                    n_maps, elapsed, n_maps / elapsed, after_first)
+    checkpointer.close()
+    return dict(meters.summary, maps=n_maps, maps_per_s=n_maps / elapsed,
+                maps_per_s_after_first=after_first), depth_dir
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    cfg = get_default_cfg()
+    if args.cfg:
+        cfg.merge_from_file(args.cfg)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    cfg.freeze()
+    output_dir = cfg.OUTPUT_DIR
+    if output_dir == "@":
+        stem = os.path.splitext(os.path.basename(args.cfg))[0] if args.cfg else "default"
+        output_dir = os.path.join("outputs", stem)
+    os.makedirs(output_dir, exist_ok=True)
+    logger = setup_logger("pointmvsnet_tpu_torch", output_dir)
+    logger.info("config %s, overrides %s, device %s", args.cfg or "(defaults)", args.opts,
+                args.device)
+    return test(cfg, output_dir, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,10 +3,11 @@
 
 One file per epoch, ``<directory>/<epoch>.pt``, holding the model's
 state_dict (parameters and BatchNorm statistics), the optimizer's state,
-the step counter and the epoch; the newest ``MAX_TO_KEEP`` are kept. The
-JAX package's orbax checkpoints are not read here (ROADMAP queue 1), and
-loading a given checkpoint for the test CLI (``TEST.WEIGHT``) waits for
-that slice.
+the step counter and the epoch; the newest ``MAX_TO_KEEP`` are kept.
+``load(..., path=)`` reads a given checkpoint instead (the test CLI's
+``TEST.WEIGHT``): a ``.pt`` file, or a directory whose newest
+``<epoch>.pt`` is taken; a file may hold only ``{"model": state_dict}``.
+The JAX package's orbax checkpoints are not read here (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -49,18 +50,36 @@ class Checkpointer:
         epochs = self._epochs()
         return epochs[-1] if epochs else None
 
-    def load(self, state: TrainState, resume: bool = True) -> Tuple[TrainState, int]:
-        """Restore the newest checkpoint into ``state`` when ``resume``
-        and there is one. → (state, next epoch)."""
+    def load(self, state: TrainState, resume: bool = True,
+             path: str = "") -> Tuple[TrainState, int]:
+        """→ (state, next epoch). ``path`` (``TEST.WEIGHT``) overrides
+        auto-resume: a ``.pt`` file or a directory of ``<epoch>.pt``
+        files (the newest is taken); the optimizer and step are restored
+        only if the file has them, and the next epoch is 0. Otherwise the
+        newest checkpoint of this directory when ``resume`` and there is
+        one."""
+        if path:
+            if os.path.isdir(path):
+                epochs = Checkpointer(path)._epochs()
+                if not epochs:
+                    raise FileNotFoundError(f"no <epoch>.pt checkpoint in {path!r}")
+                path = os.path.join(path, f"{epochs[-1]}.pt")
+            return self._restore(state, path), 0
         last = self.latest_epoch() if resume else None
         if last is None:
             return state, 0
+        return self._restore(state, self.path(last)), last + 1
+
+    @staticmethod
+    def _restore(state: TrainState, path: str) -> TrainState:
         device = next(state.model.parameters()).device
-        ckpt = torch.load(self.path(last), map_location=device, weights_only=True)
+        ckpt = torch.load(path, map_location=device, weights_only=True)
         state.model.load_state_dict(ckpt["model"])
-        state.optimizer.load_state_dict(ckpt["optimizer"])
-        state.step = int(ckpt["step"])
-        return state, last + 1
+        if "optimizer" in ckpt:
+            state.optimizer.load_state_dict(ckpt["optimizer"])
+        if "step" in ckpt:
+            state.step = int(ckpt["step"])
+        return state
 
     def close(self) -> None:
         """Nothing is pending: ``save`` writes synchronously."""

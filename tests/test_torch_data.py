@@ -180,6 +180,13 @@ def test_loader_batches_equal(jax_tree, mode):
             assert_items_equal(g, w)
 
 
-def test_test_split_not_ported():
-    with pytest.raises(NotImplementedError):
-        build_data_loader(get_default_cfg(), "test")
+def test_test_split_not_ported(jax_tree):
+    """The test split is ported now: it builds the DTU test set and keeps
+    its last partial batch; an unknown split still raises."""
+    cfg = get_default_cfg()
+    cfg.DATA.TEST.ROOT_DIR = jax_tree
+    cfg.DATA.TEST.NUM_VIEW = 3
+    loader = build_data_loader(cfg, "test")
+    assert type(loader.dataset).__name__ == "DTUTestDataset" and not loader.drop_last
+    with pytest.raises(ValueError):
+        build_data_loader(cfg, "eval")
