@@ -38,8 +38,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            B=4, BatchNorm, f32, flows at 0.25 / 0.5) on a synthetic DTU
            tree written by the port: 2 coarse-only and 2 flow steps with
            validation, a checkpoint, and a resume to 6 steps; kernel
-           launches per flow step and validation batch; steady step time,
-           peak memory and the device-busy share of one profiled step.
+           launches per flow step and validation batch; every kernel call
+           of one validation batch (B=4) bit-equal to its plain version on
+           the same inputs; steady step time, peak memory and the
+           device-busy share of one profiled step.
 8. train-parity  EdgeConv's train-mode backward on a fixed kNN graph,
            card against CPU; then one train step at 64×128, V=3, D=16, B=2,
            f32, seeded weights and noisy images, coarse-only and with both
@@ -60,9 +62,26 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            defaults: times, the card's peak memory, each cloud's accuracy
            / completeness against the scene; the card held to torch on the
            CPU on 9 of the maps (bars in phase_fusion_scan).
+11. train-bf16  the train phase with MODEL.DTYPE bfloat16: step counter,
+           checkpoints and resume, 0 skipped steps, finite parameters, 2
+           kNN and 0 masked-max launches per flow step, 2 kNN and 6
+           masked-max (bf16; 4 at F=32, 2 at F=64) per validation batch,
+           the validation batch's kernel calls bit-equal to their plain
+           versions, step time and peak memory beside the f32 phase's, a
+           profiled step; then one B=2 BatchNorm bf16 flow step, finite.
+12. train-dp  train() inside a one-rank NCCL group bit-equal to train()
+           without a group (2 + 2 steps, deterministic algorithms, in a
+           process of its own); then two ranks on cuda:0 over gloo at
+           64×128, global B=4, BN, f32 and bf16, a coarse-only and a flow
+           step each, against the one-rank step at B=4 on the card, with
+           the bars of tests/test_torch_distributed.py (printed). One card
+           cannot show NCCL between cards.
 
-Then a JSON line of per-kernel numbers (``launches`` per serving request),
-the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Imports
+Then a JSON line of per-kernel numbers (``launches`` per serving request;
+per train step and validation batch in f32 and in bf16; per exported
+map), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+``--phases train,train-bf16,train-dp`` (any subset of the three) runs
+only those, to try them on the card, and prints no result lines. Imports
 nothing of JAX.
 """
 
@@ -594,11 +613,13 @@ def phase_train_parity():
               f"BN statistics max |Δ| {sdiff:.2e}", flush=True)
 
 
-def phase_train(dev, keep_ckpt: str):
+def phase_train(dev, keep_ckpt: str, dtype: str = "float32") -> dict:
     """train() at the reference training config on a synthetic DTU tree
     written by the port, then a resume; launches, step time, memory and a
-    profiled step. The last checkpoint is copied to ``keep_ckpt`` before
-    the tree goes. → {kernel: launches per flow step / per val batch}."""
+    profiled step; every kernel call of one validation batch held to its
+    plain version on the same inputs. The last checkpoint is copied to
+    ``keep_ckpt`` (if given) before the tree goes. → {kernel: launches per
+    flow step / per val batch, "step_ms", "peak_gib", "losses"}."""
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset.build import build_data_loader
     from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
@@ -607,14 +628,17 @@ def phase_train(dev, keep_ckpt: str):
     from pointmvsnet_tpu_torch.parallel import make_eval_step, make_train_step, put_batch
     from pointmvsnet_tpu_torch.train import train
 
+    name = "train" if dtype == "float32" else "train-bf16"
+    label = {"float32": "f32", "bfloat16": "bf16"}[dtype]
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         cfg = get_default_cfg()
+        cfg.MODEL.DTYPE = dtype
         h, w, d = 512, 640, cfg.DATA.TRAIN.NUM_VIRTUAL_PLANE
         t0 = time.perf_counter()
         make_synthetic_dtu(os.path.join(work, "dtu"), scans=[2, 3, 5], num_views=3,
                            height=h, width=w, num_depth=d)
-        print(f"train: synthetic DTU tree {w}x{h}, scans 2 (train) 3 5 (val), 3 views, "
+        print(f"{name}: synthetic DTU tree {w}x{h}, scans 2 (train) 3 5 (val), 3 views, "
               f"7 lights, in {time.perf_counter() - t0:.1f} s", flush=True)
         for split in ("TRAIN", "VAL"):
             cfg.DATA[split].ROOT_DIR = os.path.join(work, "dtu")
@@ -633,16 +657,16 @@ def phase_train(dev, keep_ckpt: str):
             state = train(cfg, out, max_steps_per_epoch=2, device="cuda")
             torch.cuda.synchronize()
             got = (knn.launches, edge.launches)
-            check(state.step == steps, f"train: step counter {state.step}, want {steps}")
-            check(state.optimizer.skipped_steps == 0, "train: skipped a non-finite step")
-            check(got == want, f"train: launches kNN/masked-max {got}, want {want}")
+            check(state.step == steps, f"{name}: step counter {state.step}, want {steps}")
+            check(state.optimizer.skipped_steps == 0, f"{name}: skipped a non-finite step")
+            check(got == want, f"{name}: launches kNN/masked-max {got}, want {want}")
             ckpts = sorted(os.listdir(os.path.join(out, "checkpoints")))
-            check(f"{max_epoch - 1}.pt" in ckpts, f"train: checkpoints {ckpts}")
+            check(f"{max_epoch - 1}.pt" in ckpts, f"{name}: checkpoints {ckpts}")
             check(all(torch.isfinite(p).all() for p in state.model.parameters()),
-                  "train: non-finite parameters")
-            print(f"train: MAX_EPOCH={max_epoch} B={b}: step counter {state.step}, "
-                  f"checkpoints {ckpts}, launches kNN {got[0]} masked-max {got[1]}, "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+                  f"{name}: non-finite parameters")
+            print(f"{name}: MAX_EPOCH={max_epoch} B={b} {label}: step counter {state.step}, "
+                  f"checkpoints {ckpts}, skipped steps 0, launches kNN {got[0]} masked-max "
+                  f"{got[1]}, {time.perf_counter() - t0:.1f} s", flush=True)
 
         kw = dict(is_flow=True, img_scales=tuple(cfg.MODEL.TRAIN.IMG_SCALES),
                   inter_scales=tuple(cfg.MODEL.TRAIN.INTER_SCALES),
@@ -661,23 +685,368 @@ def phase_train(dev, keep_ckpt: str):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             got = (knn.launches - k0, edge.launches - e0)
-            check(got == (n_flow, 0), f"train step launches kNN/masked-max {got}")
+            check(got == (n_flow, 0), f"{name} step launches kNN/masked-max {got}")
             check(all(np.isfinite(float(v)) for v in losses.values()), f"losses {losses}")
+        check(state.optimizer.skipped_steps == 0, f"{name}: skipped a non-finite step")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         k0, e0 = knn.launches, edge.launches
-        _, vlosses, _ = make_eval_step(loss_fn, pointmvsnet_metrics, kw)(state, batch)
+        with record_kernel_calls() as calls:
+            _, vlosses, _ = make_eval_step(loss_fn, pointmvsnet_metrics, kw)(state, batch)
         torch.cuda.synchronize()
         vgot = (knn.launches - k0, edge.launches - e0)
-        check(vgot == (n_flow, n_edge * n_flow), f"val batch launches {vgot}")
-        print(f"train: flow step {w}x{h} V=3 D={d} B={b} f32: step ms {[round(t, 1) for t in times]}"
-              f", max_memory_allocated {peak:.2f} GiB, launches per step kNN {n_flow} "
-              f"masked-max 0, per val batch kNN {vgot[0]} masked-max {vgot[1]}; losses "
-              f"{ {k: round(float(v), 4) for k, v in losses.items() if k.endswith('loss')} }",
-              flush=True)
-        profile_call(lambda: step(state, batch), f"train step (B={b})")
-        shutil.copy(os.path.join(out, "checkpoints", f"{cfg.SCHEDULER.MAX_EPOCH - 1}.pt"),
-                    keep_ckpt)
-        return {"window_knn": (n_flow, vgot[0]), "masked_window_max": (0, vgot[1])}
+        check(vgot == (n_flow, n_edge * n_flow), f"{name}: val batch launches {vgot}")
+        check(all(np.isfinite(float(v)) for v in vlosses.values()), f"val losses {vlosses}")
+        shapes = check_kernel_calls(calls, f"{name} val batch")
+        print(f"{name}: flow step {w}x{h} V=3 D={d} B={b} {label}: step ms "
+              f"{[round(t, 1) for t in times]}, max_memory_allocated {peak:.2f} GiB, launches "
+              f"per step kNN {n_flow} masked-max 0, per val batch kNN {vgot[0]} masked-max "
+              f"{vgot[1]}; the val batch's kernel calls bit-equal to their plain versions "
+              f"({shapes}); losses "
+              f"{ {k: round(float(v), 4) for k, v in losses.items() if k.endswith('loss')} }; "
+              f"{smi_line()}", flush=True)
+        profile_call(lambda: step(state, batch), f"train step (B={b}, {label})")
+        if keep_ckpt:
+            shutil.copy(os.path.join(out, "checkpoints", f"{cfg.SCHEDULER.MAX_EPOCH - 1}.pt"),
+                        keep_ckpt)
+        return {"window_knn": (n_flow, vgot[0]), "masked_window_max": (0, vgot[1]),
+                "step_ms": times, "peak_gib": peak, "batch": {k: v[:2] for k, v in batch.items()},
+                "kw": kw}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+class record_kernel_calls:
+    """Inside the block, the model's calls of the kNN (with mask) and of the
+    masked window max are recorded with their inputs and outputs."""
+
+    def __enter__(self):
+        import pointmvsnet_tpu_torch.models.edge_conv as medge
+        import pointmvsnet_tpu_torch.models.pointmvsnet as mflow
+        self.calls = []
+        self.saved = [(mflow, "window_knn_mask", mflow.window_knn_mask),
+                      (mflow, "window_knn_idx", mflow.window_knn_idx),
+                      (medge, "masked_window_max", medge.masked_window_max)]
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, self._wrap(attr, fn))
+        return self.calls
+
+    def _wrap(self, attr, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.calls.append((attr, args, kwargs, out))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def check_kernel_calls(calls, what: str) -> str:
+    """Each recorded kernel call against its plain version on the same
+    inputs (no launch), bit for bit. → the shapes met, for the log."""
+    from pointmvsnet_tpu_torch.ops.edge import masked_window_max_plain
+    from pointmvsnet_tpu_torch.ops.knn import window_knn
+
+    check(calls, f"{what}: no kernel call recorded")
+    met = set()
+    with torch.inference_mode():
+        for attr, args, _, out in calls:
+            if attr == "window_knn_mask":
+                ref = window_knn(*args, with_mask=True)
+                check(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
+                      f"{what}: window_knn at {tuple(args[0].shape)} grid {args[1]}: "
+                      f"kernel != plain")
+                met.add(f"knn {tuple(args[0].shape)}")
+            elif attr == "window_knn_idx":
+                check(torch.equal(out, window_knn(*args)),
+                      f"{what}: window_knn at {tuple(args[0].shape)} grid {args[1]}: "
+                      f"kernel != plain")
+                met.add(f"knn {tuple(args[0].shape)}")
+            else:
+                z = args[0]
+                check(same_bits(out, masked_window_max_plain(*args)),
+                      f"{what}: masked_window_max at {tuple(z.shape)} {z.dtype}: "
+                      f"kernel != plain")
+                met.add(f"mwm {tuple(z.shape)} {str(z.dtype)[6:]}")
+    return ", ".join(sorted(met))
+
+
+def phase_train_bf16(dev, f32: dict) -> dict:
+    """``phase_train`` with MODEL.DTYPE bfloat16 (the JAX package's
+    training precision; parameters and optimizer state stay f32), its step
+    time and peak memory beside the f32 phase's of this run; then one flow
+    step at B=2 with BatchNorm in bf16 from fresh seeded weights, which
+    must be finite (the JAX package's TPU compile gives NaN there,
+    docs/STATUS.md; on the card a NaN would be the port's fault)."""
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.models import build_loss_fn, build_model
+    from pointmvsnet_tpu_torch.parallel import TrainState, make_train_step
+    from pointmvsnet_tpu_torch.utils.solver import build_optimizer
+
+    res = phase_train(dev, None, dtype="bfloat16")
+    med = {k: float(np.median(r["step_ms"])) for k, r in (("f32", f32), ("bf16", res))}
+    print(f"train-bf16: flow step 640x512 V=3 D=48 B=4, median of 3 steady steps: bf16 "
+          f"{med['bf16']:.1f} ms, f32 {med['f32']:.1f} ms ({med['bf16'] / med['f32']:.3f}x); "
+          f"max_memory_allocated bf16 {res['peak_gib']:.2f} GiB, f32 {f32['peak_gib']:.2f} GiB; "
+          f"{smi_line()}", flush=True)
+
+    cfg = get_default_cfg()
+    cfg.MODEL.DTYPE = "bfloat16"
+    cfg.MODEL.MASKED_LOSS = False     # every flow pixel: a gradient through EdgeConv's BN
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.RNG_SEED)
+        model = build_model(cfg, dev)
+    state = TrainState(model, build_optimizer(cfg, dict(model.named_parameters())))
+    state, losses = make_train_step(build_loss_fn(cfg), res["kw"])(state, res["batch"])
+    finite = all(np.isfinite(float(v)) for v in losses.values())
+    grads_finite = all(torch.isfinite(p.grad).all() for p in model.parameters()
+                       if p.grad is not None)
+    edge = max(float(p.grad.abs().max()) for n, p in model.named_parameters()
+               if n.startswith("point_flow.edge_convs.") and "norm" in n)
+    check(finite and grads_finite and state.optimizer.count == 1 and edge > 0
+          and all(torch.isfinite(p).all() for p in model.parameters()),
+          f"train-bf16: B=2 BatchNorm bf16 step not finite: {losses}, EdgeConv BN |g| {edge}")
+    print(f"train-bf16: one flow step at B=2, BatchNorm, bf16, fresh weights, every flow pixel "
+          f"in the loss: finite losses "
+          f"{ {k: round(float(v), 4) for k, v in losses.items() if k.endswith('loss')} }, "
+          f"finite gradients (EdgeConv BN max |g| {edge:.3e}), update applied", flush=True)
+    return res
+
+
+# tests/test_torch_distributed.py's bars for two ranks against one: losses
+# rtol 2e-4; f32 statistics rtol 2e-4 (atol 1e-6) and gradients within 1e-4
+# (coarse-only) / 1e-2 (flow) of their max |g|; bf16 statistics within 2⁻⁷
+# of their largest magnitude and gradients no further from the one-rank f32
+# gradients than twice the one-rank bf16 step's (RMS of relative L2)
+DP_BARS = {"rtol": 2e-4, "atol": 1e-6, "grad": {False: 1e-4, True: 1e-2},
+           "stats_bf16": 2.0 ** -7, "rms_factor": 2.0}
+SHIFT_INVARIANT = ("vol_conv.convs.7.conv.bias", "point_flow.head.layers.1.linear.bias")
+
+
+def rms_distance(grads: dict, ref: dict) -> float:
+    """RMS over the parameters of ‖g − ref‖ / ‖ref‖."""
+    d = [float((grads[n] - g).norm()) / float(g.norm()) for n, g in ref.items()
+         if n not in SHIFT_INVARIANT and float(g.norm()) > 0]
+    return float(np.sqrt(np.mean(np.square(d))))
+
+
+def dp_cfg(dtype: str):
+    """The CPU tests' data-parallel config (tests/torch_dp_worker.py) with
+    the kernel's k = 16."""
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    cfg = get_default_cfg()
+    cfg.MODEL.IMG_BASE_CHANNELS = cfg.MODEL.VOL_BASE_CHANNELS = 4
+    cfg.MODEL.EDGE_CHANNELS = (8,)
+    cfg.MODEL.FLOW_CHANNELS = (8, 1)
+    cfg.MODEL.NUM_VIRTUAL_PLANE = 16
+    cfg.MODEL.MASKED_LOSS = False
+    cfg.MODEL.DTYPE = dtype
+    return cfg
+
+
+def dp_step(dtype: str, kw: dict, sd: dict, batch: dict, points, dev) -> dict:
+    """One train step of ``dp_cfg`` on ``dev`` from ``sd``, the kNN fed
+    ``points`` (or recording its input points when None), every kNN call
+    held to the plain version → losses, gradients, BN statistics (CPU),
+    the kNN input points."""
+    import pointmvsnet_tpu_torch.models.pointmvsnet as mflow
+    from pointmvsnet_tpu_torch.models import build_loss_fn, build_model
+    from pointmvsnet_tpu_torch.parallel import TrainState, make_train_step, put_batch
+    from pointmvsnet_tpu_torch.utils.solver import build_optimizer
+
+    from pointmvsnet_tpu_torch.ops import knn as knn_op
+
+    cfg = dp_cfg(dtype)
+    model = build_model(cfg, dev)
+    model.load_state_dict(sd)
+    state = TrainState(model, build_optimizer(cfg, dict(model.named_parameters())))
+    seen = []
+    knn_op.launches = 0
+    with record_kernel_calls() as calls:
+        recorded = mflow.window_knn_idx
+
+        def knn(pts, *args):
+            seen.append(pts.detach().cpu())
+            return recorded(pts if points is None else points.to(pts.device), *args)
+
+        mflow.window_knn_idx = knn
+        state, losses = make_train_step(build_loss_fn(cfg), kw)(state, put_batch(batch, dev))
+    check(state.optimizer.count == 1, f"train-dp: the {dtype} step skipped its update")
+    if kw["is_flow"]:
+        check_kernel_calls(calls, f"train-dp {dtype} step")
+    return dict(losses={k: float(v) for k, v in losses.items()},
+                grads={n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                       for n, p in model.named_parameters()},
+                stats={n: b.cpu() for n, b in model.named_buffers() if "running" in n},
+                points=seen[0] if seen else None, knn_launches=knn_op.launches)
+
+
+def dp_rank(rank: int, world: int, store: str, jobs: list, out: str) -> None:
+    """A rank of the two-rank check: a gloo group over a FileStore, both
+    ranks on cuda:0; each job is one step on the rank's rows."""
+    import torch.distributed as dist
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        results = []
+        for job in jobs:
+            per = job["batch"]["images"].shape[0] // world
+            rows = slice(rank * per, (rank + 1) * per)
+            pts = job["points"]
+            results.append(dp_step(job["dtype"], job["kw"], job["sd"],
+                                   {k: v[rows] for k, v in job["batch"].items()},
+                                   None if pts is None else pts[rows], torch.device("cuda", 0)))
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_one_rank(rank: int, tree: str, out: str, store: str) -> None:
+    """train() (2 coarse-only + 2 flow steps with validation, reference
+    config, f32) without a process group and inside a one-rank NCCL group,
+    with deterministic algorithms; the parameters and buffers of both
+    runs to ``out``."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.train import train
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    warnings.filterwarnings("ignore", message=".*deterministic.*")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_default_cfg()
+    for split in ("TRAIN", "VAL"):
+        cfg.DATA[split].ROOT_DIR = tree
+    cfg.SCHEDULER.INIT_EPOCH = 1
+    cfg.SCHEDULER.MAX_EPOCH = 2
+    runs = {}
+
+    def run(name):
+        state = train(cfg, os.path.join(out, name), max_steps_per_epoch=2, device="cuda")
+        runs[name] = {n: t.detach().cpu() for n, t in state.model.state_dict().items()}
+        runs[name + "_step"] = state.step
+
+    run("no_group")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        run("nccl_1")
+    finally:
+        dist.destroy_process_group()
+    if not all(same_bits(v, runs["nccl_1"][k]) for k, v in runs["no_group"].items()):
+        run("no_group_again")      # is the training itself deterministic here?
+    torch.save(runs, os.path.join(out, "runs.pt"))
+
+
+def phase_train_dp(dev):
+    """Data parallelism on the one card. (1) A one-rank NCCL group around
+    train() against train() without a group: parameters and buffers
+    bit-equal after 2 + 2 steps. (2) Two ranks on cuda:0 over gloo (NCCL
+    refuses two ranks on one device) at 64x128, V=3, D=16, global B=4,
+    BatchNorm, f32 and bf16, one coarse-only and one flow step, against the
+    one-rank step at B=4 on the card, the kNN of both fed the one-rank
+    step's kNN input points, with the bars of tests/test_torch_distributed.py.
+    A single card cannot show NCCL between cards."""
+    import torch.multiprocessing as mp
+
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch, make_synthetic_dtu
+    from pointmvsnet_tpu_torch.models import build_model
+    from pointmvsnet_tpu_torch.utils.convert import init_params
+
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()        # the ranks' processes share the card with this one
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        tree = os.path.join(work, "dtu")
+        make_synthetic_dtu(tree, scans=[2, 3, 5], num_views=3, height=512, width=640,
+                           num_depth=48)
+        t0 = time.perf_counter()
+        mp.spawn(nccl_one_rank, args=(tree, work, os.path.join(work, "store1")), nprocs=1,
+                 join=True)
+        runs = torch.load(os.path.join(work, "runs.pt"), weights_only=False)
+        equal = all(same_bits(v, runs["nccl_1"][k]) for k, v in runs["no_group"].items())
+        check(runs["no_group_step"] == runs["nccl_1_step"] == 4, f"train-dp: steps {runs}")
+        check(equal, "train-dp: the one-rank NCCL run differs from the run without a group "
+                     f"(two runs without a group bit-equal: "
+                     f"{'no_group_again' in runs and all(same_bits(v, runs['no_group_again'][k]) for k, v in runs['no_group'].items())})")
+        print(f"train-dp: train() 640x512 V=3 D=48 B=4 f32, 2 coarse-only + 2 flow steps with "
+              f"validation, deterministic algorithms: inside a one-rank NCCL group bit-equal to "
+              f"the run without a group ({len(runs['no_group'])} parameters and buffers), "
+              f"{time.perf_counter() - t0:.1f} s with the process start", flush=True)
+
+        images, cams, gt = make_scene_batch(4, 3, 64, 128, 16, seed=5)
+        images = (images + 3.0 * np.random.RandomState(7).randn(*images.shape)).astype(np.float32)
+        batch = {"images": images, "cams": cams, "gt_depth": gt[..., None]}
+        sd = init_params(build_model(dp_cfg("float32"), "cpu"), torch.Generator().manual_seed(6))
+        sd = {k: v * 1.5 if k.endswith(("conv.weight", "linear.weight", "kernel")) else v
+              for k, v in sd.items()}
+        configs = [(dtype, is_flow) for dtype in ("float32", "bfloat16") for is_flow in (False, True)]
+        jobs, ones, refs = [], [], []
+        for dtype, is_flow in configs:
+            kw = dict(is_flow=is_flow, img_scales=(0.25,), inter_scales=(0.75,),
+                      num_virtual_plane=16)
+            one = dp_step(dtype, kw, sd, batch, None, dev)
+            ones.append(one)
+            # bf16: the one-rank f32 gradients on the same kNN graph
+            refs.append(dp_step("float32", kw, sd, batch, one["points"], dev)["grads"]
+                        if dtype == "bfloat16" else None)
+            jobs.append(dict(dtype=dtype, kw=kw, sd=sd, batch=batch, points=one["points"]))
+        mp.spawn(dp_rank, args=(2, os.path.join(work, "store2"), jobs, work), nprocs=2, join=True)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        report = []
+        for (dtype, is_flow), one, ref, r0, r1 in zip(configs, ones, refs, *ranks):
+            what = f"train-dp {dtype} {'flow' if is_flow else 'coarse-only'}"
+            check(r0["losses"] == r1["losses"]
+                  and all(torch.equal(v, r1["grads"][k]) for k, v in r0["grads"].items()),
+                  f"{what}: the two ranks disagree")
+            check(one["knn_launches"] == r0["knn_launches"] == r1["knn_launches"] == int(is_flow),
+                  f"{what}: kNN launches {one['knn_launches']}, {r0['knn_launches']}, "
+                  f"{r1['knn_launches']}")
+            loss_gap = max(abs(r0["losses"][k] - v) / abs(v)
+                           for k, v in one["losses"].items() if k.endswith("loss"))
+            check(loss_gap <= DP_BARS["rtol"], f"{what}: losses {loss_gap:.2e}")
+            if dtype == "float32":
+                for n, v in one["stats"].items():
+                    check(torch.allclose(r0["stats"][n], v, rtol=DP_BARS["rtol"],
+                                         atol=DP_BARS["atol"]), f"{what}: {n}")
+                gaps = {n: float((r0["grads"][n] - g).abs().max()) / float(g.abs().max())
+                        for n, g in one["grads"].items()
+                        if n not in SHIFT_INVARIANT and float(g.abs().max()) > 0}
+                worst = max(gaps, key=gaps.get)
+                bar = DP_BARS["grad"][is_flow]
+                check(gaps[worst] <= bar, f"{what}: grad {worst} {gaps[worst]:.2e} of max |g|")
+                grad_note = f"gradients {gaps[worst]:.1e} of max |g| at {worst} (bar {bar:g})"
+                stats_note = f"rtol {DP_BARS['rtol']:g} atol {DP_BARS['atol']:g}"
+            else:
+                for n, v in one["stats"].items():
+                    gap = float((r0["stats"][n] - v).abs().max()) / float(v.abs().max())
+                    check(gap <= DP_BARS["stats_bf16"], f"{what}: {n} {gap:.2e}")
+                two_d, one_d = rms_distance(r0["grads"], ref), rms_distance(one["grads"], ref)
+                check(two_d <= DP_BARS["rms_factor"] * one_d,
+                      f"{what}: gradients {two_d:.3f} from f32, one rank {one_d:.3f}")
+                grad_note = (f"gradients {two_d:.3f} from the one-rank f32 ones (RMS relative "
+                             f"L2), one rank's bf16 {one_d:.3f} (bar 2x)")
+                stats_note = "2^-7 of max"
+            stats_gap = max(float((r0["stats"][n] - v).abs().max()) / float(v.abs().max())
+                            for n, v in one["stats"].items())
+            report.append(f"{dtype} {'flow' if is_flow else 'coarse'}: losses {loss_gap:.1e} "
+                          f"(bar {DP_BARS['rtol']:g}), BN stats {stats_gap:.1e} of max "
+                          f"(bar {stats_note}), {grad_note}")
+        print(f"train-dp: two ranks on cuda:0 over gloo, 64x128 V=3 D=16 global B=4 BN, against "
+              f"one rank at B=4 on the card (1 kNN launch per flow step on each rank, every kNN "
+              f"call bit-equal to its plain version): "
+              f"{'; '.join(report)}. One card cannot show NCCL between cards.", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -958,7 +1327,18 @@ def profile_call(fn, what: str, top: int = 12):
               f"{e.key[:90]}", flush=True)
 
 
-def main() -> int:
+PHASES = ["env", "build", "kernels", "adversarial", "gather", "parity", "serve", "train",
+          "train-parity", "export", "fusion-scan", "train-bf16", "train-dp"]
+
+
+def main(argv=None) -> int:
+    import argparse
+    p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
+    p.add_argument("--phases", default="",
+                   help="comma-separated subset of train,train-bf16,train-dp to try on the "
+                        "card (prints no result lines); default: every phase")
+    args = p.parse_args(argv)
+    phases = ["env", "build"] + args.phases.split(",") if args.phases else PHASES
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -981,6 +1361,18 @@ def main() -> int:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
     dev = torch.device("cuda")
+    if phases != PHASES:
+        # a partial run, to try phases on the card: no result lines
+        per_train = phase_train(dev, None) if {"train", "train-bf16"} & set(phases) else None
+        for name in phases[2:]:
+            if name == "train-bf16":
+                phase_train_bf16(dev, per_train)
+            elif name == "train-dp":
+                phase_train_dp(dev)
+            elif name != "train":
+                fail(f"--phases: {name} runs only in a whole run")
+        print(f"chip_smoke: partial run of {phases}: every check passed")
+        return 0
     tot = phase_kernels(dev)
     phase_adversarial(dev)
     gat = phase_gather(dev)
@@ -996,6 +1388,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_fusion_scan()
+    per_bf16 = phase_train_bf16(dev, per_train)
+    phase_train_dp(dev)
 
     rows = []
     for name, line, launches in [("window_knn", "knn.py:40", n_knn),
@@ -1015,6 +1409,8 @@ def main() -> int:
             "launches_per_train_step": per_train[name][0],
             "launches_per_val_batch": per_train[name][1],
             "launches_per_exported_map": per_map[0 if name == "window_knn" else 1],
+            "launches_per_bf16_train_step": per_bf16[name][0],
+            "launches_per_bf16_val_batch": per_bf16[name][1],
         })
     rows.append({
         "name": "window_gather", "route": "cuda",

@@ -3,6 +3,14 @@ of ``pointmvsnet_tpu/dataset/build.py`` (numpy batches; the train and eval
 steps move them to the device): the train and val splits of the DTU
 training release, and the test split of DTU or Tanks & Temples
 (``DATA.TEST.DATASET``).
+
+Under data parallelism (``parallel/distributed.py``) the train and val
+batch sizes are the global batch, as in the JAX package where
+``shard_batch`` splits it: every rank draws the same shuffled batches
+(seeded by ``seed + epoch``) and keeps rows ``[r·b/W, (r+1)·b/W)`` of
+each, so W ranks together see the one-rank run's batches. The test split
+instead gives each rank every W-th item (``RankShard``): each exports its
+own maps, and no item is exported twice.
 """
 
 from __future__ import annotations
@@ -28,12 +36,20 @@ class DataLoader:
     batch is dropped, so every batch has the same shape (training);
     without it the last batch is shorter (the test split exports every
     view). ``num_workers`` > 0 decodes batches in one background thread,
-    ``PREFETCH`` batches ahead."""
+    ``PREFETCH`` batches ahead. ``rank`` of ``world``: each batch of
+    ``batch_size`` rows is the global one, of which this loader yields
+    rows ``[rank·b/world, (rank+1)·b/world)``."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 seed: int = 0, num_workers: int = 0, drop_last: bool = True):
+                 seed: int = 0, num_workers: int = 0, drop_last: bool = True,
+                 rank: int = 0, world: int = 1):
+        if batch_size % world or not drop_last and world > 1:
+            raise ValueError(f"a batch of {batch_size} cannot be split over {world} "
+                             f"ranks (the batch size must be a multiple of the world "
+                             f"size, and every batch full)")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = num_workers
@@ -52,7 +68,9 @@ class DataLoader:
         if self.shuffle:
             np.random.RandomState(self.seed + self._epoch).shuffle(idx)
         nb = len(self)
-        return [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)]
+        per = self.batch_size // self.world
+        lo = [i * self.batch_size + self.rank * per for i in range(nb)]
+        return [idx[i:i + per] for i in lo]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self._batch_indices()
@@ -98,9 +116,24 @@ class DataLoader:
                     t.join(0.05)
 
 
+class RankShard:
+    """Items ``rank``, ``rank + world``, ... of ``dataset``."""
+
+    def __init__(self, dataset, rank: int, world: int):
+        self.dataset, self.rank, self.world = dataset, rank, world
+
+    def __len__(self) -> int:
+        return len(range(self.rank, len(self.dataset), self.world))
+
+    def __getitem__(self, i: int):
+        return self.dataset[self.rank + i * self.world]
+
+
 def build_data_loader(cfg, mode: str = "train") -> DataLoader:
-    """cfg → the loader of the "train", "val" or "test" split."""
+    """cfg → this rank's loader of the "train", "val" or "test" split
+    (the whole split without a process group)."""
     from pointmvsnet_tpu_torch.dataset.dtu import DTUTestDataset, DTUTrainValDataset
+    from pointmvsnet_tpu_torch.parallel import distributed
 
     if mode not in ("train", "val", "test"):
         raise ValueError(f"mode {mode!r}: want 'train', 'val' or 'test'")
@@ -117,6 +150,9 @@ def build_data_loader(cfg, mode: str = "train") -> DataLoader:
             ds = DTUTestDataset(t.ROOT_DIR, **kw)
         else:
             raise ValueError(f"DATA.TEST.DATASET={t.DATASET!r}: want 'dtu' or 'tanks'")
+        world = distributed.world_size()
+        if world > 1:
+            ds = RankShard(ds, distributed.rank(), world)
         return DataLoader(ds, cfg.TEST.BATCH_SIZE, shuffle=False, drop_last=False,
                           num_workers=cfg.DATA.NUM_WORKERS)
     split = cfg.DATA.TRAIN if mode == "train" else cfg.DATA.VAL
@@ -125,8 +161,6 @@ def build_data_loader(cfg, mode: str = "train") -> DataLoader:
         num_view=split.NUM_VIEW,
         num_virtual_plane=cfg.DATA.TRAIN.NUM_VIRTUAL_PLANE,
         interval_scale=cfg.DATA.TRAIN.INTERVAL_SCALE)
-    if mode == "train":
-        return DataLoader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=True,
-                          seed=cfg.RNG_SEED, num_workers=cfg.DATA.NUM_WORKERS)
-    return DataLoader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=False,
-                      num_workers=cfg.DATA.NUM_WORKERS)
+    return DataLoader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=mode == "train",
+                      seed=cfg.RNG_SEED, num_workers=cfg.DATA.NUM_WORKERS,
+                      rank=distributed.rank(), world=distributed.world_size())

@@ -4,8 +4,10 @@ counterpart of ``pointmvsnet_tpu/models/blocks.py``.
 Parameters stay float32 and are cast to the block's compute ``dtype`` in
 ``forward``, as flax's ``dtype=`` does. Convs pad k//2 on both sides;
 deconvs are ``ConvTranspose(k, s, padding=k//2, output_padding=s-1)``. GN
-uses gcd(8, C) groups. Norm arithmetic runs in f32 and its output is cast
-back to the compute dtype. The convs run NCHW / NCDHW; ``SharedMLP`` takes
+uses gcd(8, C) groups. Norm arithmetic runs in f32. As the JAX package's
+``_norm_layer`` does, a norm in training mode returns f32 and one in eval
+mode returns the compute dtype; the next conv or dense casts its input to
+the compute dtype again. The convs run NCHW / NCDHW; ``SharedMLP`` takes
 channels-last (B, N, C).
 
 BatchNorm (eps 1e-5) keeps ``nn.BatchNorm*d``'s parameters and buffers but
@@ -13,7 +15,9 @@ not its training arithmetic: in eval mode it normalizes by the running
 statistics; in training mode ``bn_train`` follows flax's ``BatchNorm``
 (batch mean and E[x²] − E[x]² clamped at 0, in f32; running statistics
 blended with momentum 0.9 using the *biased* batch variance, where torch's
-own module would use the unbiased one).
+own module would use the unbiased one). Under data parallelism the batch
+moments are those of the global batch (sync-BN, ``bn_moments``), so the
+running statistics stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from pointmvsnet_tpu_torch.parallel import distributed
 
 _BN = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
 
@@ -41,20 +47,32 @@ def make_norm(norm: str, channels: int, rank: int = 1) -> nn.Module | None:
 BN_MOMENTUM = 0.9      # flax's: running = 0.9 · running + 0.1 · batch
 
 
+def bn_moments(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 mean and E[x²] − E[x]² (clamped at 0) of ``x`` over ``dims`` and
+    over every rank's shard of the batch: the sums and sums of squares go
+    through one differentiable all-reduce (the identity without a process
+    group) and are divided by the global element count."""
+    xf = x.float()
+    c = xf.shape[next(d for d in range(x.dim()) if d not in dims)]
+    count = (x.numel() // c) * distributed.world_size()
+    sums = distributed.all_reduce_sum(torch.cat([xf.sum(dims), xf.square().sum(dims)]))
+    mean = sums[:c] / count
+    var = (sums[c:] / count - mean.square()).clamp_min(0.0)
+    return mean, var
+
+
 def bn_batch_stats(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, dims):
     """Train-mode BatchNorm arithmetic of flax over the reduction ``dims``
-    of ``x`` (the channels are the remaining dim): f32 batch mean and
-    E[x²] − E[x]² clamped at 0, f32 normalization cast back to ``x``'s
-    dtype. → (y, mean, var); the running statistics are left alone."""
-    xf = x.float()
-    mean = xf.mean(dims)
-    var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+    of ``x`` (the channels are the remaining dim): ``bn_moments`` and the
+    f32 normalization. → (y in f32, mean, var); the running statistics are
+    left alone."""
+    mean, var = bn_moments(x, dims)
     shape = [1] * x.dim()
     ch = next(d for d in range(x.dim()) if d not in dims)
     shape[ch] = -1
     mul = torch.rsqrt(var + bn.eps) * bn.weight
-    y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
-    return y.to(x.dtype), mean, var
+    y = (x.float() - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return y, mean, var
 
 
 @torch.no_grad()
@@ -75,13 +93,15 @@ def bn_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
 
 
 def apply_norm(layer: nn.Module | None, x: torch.Tensor) -> torch.Tensor:
-    """Channels at dim 1. Eval BN takes a low-precision input with f32
-    stats directly (its arithmetic is f32); train BN is ``bn_train``; GN is
-    run on an f32 copy in both modes."""
+    """Channels at dim 1. Training mode returns f32: BN is ``bn_train``, GN
+    runs on an f32 copy. Eval mode returns ``x``'s dtype: BN takes a
+    low-precision input with f32 stats directly (its arithmetic is f32), GN
+    runs on an f32 copy and casts back."""
     if layer is None:
         return x
     if isinstance(layer, nn.GroupNorm):
-        return layer(x.float()).to(x.dtype)
+        y = layer(x.float())
+        return y if layer.training else y.to(x.dtype)
     if layer.training:
         return bn_train(layer, x, [0, *range(2, x.dim())])
     return layer(x)

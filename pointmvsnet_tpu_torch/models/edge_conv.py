@@ -12,12 +12,16 @@ the masked window max of ``ops/edge.py`` (a CUDA kernel on the card), and
 no (N, K, F) tensor exists. The gather path (training, no mask, or
 GroupNorm) forms that tensor with ``gather_knn``; it is also the tests'
 oracle. In training, BatchNorm takes f32 batch moments over (B, N, K)
-(``blocks.bn_batch_stats``, flax semantics) and autograd differentiates
-the gather (its backward is an ``index_add``), as XLA does in the JAX
-package. The backward recomputes the gather path from z and the centre
-term instead of keeping its (B, N, K, F) tensors: at the 640×512 training
-config they are 3.4 GB (F = 32) and 6.7 GB (F = 64) each at B = 4, and
-keeping three per EdgeConv does not fit the card's 80 GB.
+(``blocks.bn_batch_stats``, flax semantics, over the global batch under
+data parallelism) and casts its f32 result back to the compute dtype,
+while GroupNorm returns f32, as in the JAX package; autograd
+differentiates the gather (its backward is an ``index_add``), as XLA does
+in the JAX package. The backward recomputes the gather path from z and
+the centre term (in the compute dtype, with sync-BN's all-reduce again,
+in the same order on every rank) instead of keeping its (B, N, K, F)
+tensors: at the 640×512 training config they are 3.4 GB (F = 32) and 6.7
+GB (F = 64) each at B = 4, and keeping three per EdgeConv does not fit
+the card's 80 GB.
 """
 
 from __future__ import annotations
@@ -93,7 +97,8 @@ class EdgeConv(nn.Module):
         pre = gather_knn(z, knn_idx) + cterm[:, :, None, :]      # (B, N, K, F)
         stats = None
         if self.norm_kind == "bn" and self.training:
-            pre, mean, var = bn_batch_stats(self.norm, pre, [0, 1, 2])
+            y, mean, var = bn_batch_stats(self.norm, pre, [0, 1, 2])
+            pre = y.to(pre.dtype)
             stats = (mean.detach(), var.detach())
         elif self.norm_kind == "bn":
             mul, mean, bias = self._bn_affine()

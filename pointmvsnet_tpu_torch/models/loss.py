@@ -8,6 +8,13 @@ Ground truth is resized to each output by ``nearest-exact``, which equals
 the JAX package's ``jax.image.resize(method="nearest")`` (``nearest``
 does not). Masked means divide by max(count, 1), so an empty mask gives 0
 and no NaN.
+
+With ``sharded`` the batch is this rank's rows of a global batch (the
+train and validation steps under data parallelism): each masked mean is
+then the local masked sum over the count of the *global* batch, as the
+JAX package's mean over its sharded batch is, so the ranks' values sum to
+the global loss and the sum of their gradients is its gradient. A mean of
+per-rank means would be another loss.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from pointmvsnet_tpu_torch.ops.geometry import cam_depth_range
+from pointmvsnet_tpu_torch.parallel import distributed
 
 
 def _resize_gt(gt: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -25,9 +33,11 @@ def _resize_gt(gt: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.interpolate(gt[:, None], (h, w), mode="nearest-exact")[:, 0]
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    denom = mask.sum().to(x.dtype).clamp_min(1.0)
-    return torch.where(mask, x, 0.0).sum() / denom
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, sharded: bool) -> torch.Tensor:
+    count = mask.sum().to(x.dtype)
+    if sharded:
+        count = distributed.all_reduce_sum_(count)
+    return torch.where(mask, x, 0.0).sum() / count.clamp_min(1.0)
 
 
 def _stages(preds: Dict[str, torch.Tensor]):
@@ -38,7 +48,8 @@ def _stages(preds: Dict[str, torch.Tensor]):
 
 def pointmvsnet_loss(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
                      cams: torch.Tensor,
-                     valid_threshold: float = 0.0) -> Dict[str, torch.Tensor]:
+                     valid_threshold: float = 0.0,
+                     sharded: bool = False) -> Dict[str, torch.Tensor]:
     """Per-output masked MAE in interval units and ``total_loss``, their
     sum. With ``valid_threshold`` > 0 each flow iteration only counts pixels
     whose GT lies within ``valid_threshold`` intervals of that iteration's
@@ -58,7 +69,7 @@ def pointmvsnet_loss(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
             mask = mask & (reach < valid_threshold)
         err = (pred - g).abs() * inv_int
         name = "coarse_loss" if key == "coarse_depth_map" else f"{key}_loss"
-        losses[name] = _masked_mean(err, mask)
+        losses[name] = _masked_mean(err, mask, sharded)
         total = total + losses[name]
     losses["total_loss"] = total
     return losses
@@ -66,7 +77,8 @@ def pointmvsnet_loss(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
 
 def pointmvsnet_metrics(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
                         cams: torch.Tensor,
-                        thresholds: Sequence[float] = (1.0, 3.0)) -> Dict[str, torch.Tensor]:
+                        thresholds: Sequence[float] = (1.0, 3.0),
+                        sharded: bool = False) -> Dict[str, torch.Tensor]:
     """``<{t}_pct_{stage}``: fraction of valid pixels whose error is below
     t intervals, stage ``cor`` for the coarse map and ``flowN``."""
     gt = gt_depth[..., 0]
@@ -80,5 +92,6 @@ def pointmvsnet_metrics(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
         err = (pred - g).abs()
         stage = "cor" if key == "coarse_depth_map" else key
         for t in thresholds:
-            out[f"<{int(t)}_pct_{stage}"] = _masked_mean((err < t * interval).float(), mask)
+            out[f"<{int(t)}_pct_{stage}"] = _masked_mean((err < t * interval).float(), mask,
+                                                            sharded)
     return out

@@ -45,6 +45,7 @@ from pointmvsnet_tpu_torch.ops.knn import window_knn_idx, window_knn_mask
 from pointmvsnet_tpu_torch.ops.sampling import (
     fetch_features_perlevel,
     regular_grid_sample,
+    resize_bilinear,
 )
 
 
@@ -228,8 +229,7 @@ class PointMVSNet(nn.Module):
             cams_levels = [scale_cams(cams, lvl.shape[3] / width, lvl.shape[2] / height)
                            for lvl in levels]
             ref_cam = scale_cams(cams[:, 0], tw / width, th / height)
-            cur = F.interpolate(cur[:, None], (th, tw), mode="bilinear",
-                                align_corners=False)[:, 0]
+            cur = resize_bilinear(cur, th, tw)
             preds[f"flow{it + 1}_input"] = cur.detach()
             cur = self.point_flow(levels, cams_levels, ref_cam, cur, d_int * inter_s)
             preds[f"flow{it + 1}"] = cur

@@ -83,6 +83,29 @@ def regular_grid_sample(feat: torch.Tensor, sx: float, sy: float,
     return y.reshape(b, out_h * out_w, c)
 
 
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(B, H, W) → (B, out_h, out_w), bilinear with half-pixel centres and
+    edges clamped: ``F.interpolate(mode="bilinear", align_corners=False)``
+    and, for upsampling, ``jax.image.resize(method="bilinear")``. Computed
+    as two interpolation matmuls, as the JAX package's resize is, so that
+    its backward is deterministic on the card (``F.interpolate``'s CUDA
+    backward accumulates with atomics)."""
+    b, h, w = x.shape
+
+    def lerp_matrix(n_out, n_in):
+        t = ((torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5)
+             * (n_in / n_out) - 0.5).clamp_min(0.0)
+        i0 = t.long()
+        lam = (t - i0)[:, None]
+        i1 = (i0 + 1).clamp_max(n_in - 1)[:, None]
+        cols = torch.arange(n_in, device=x.device)[None, :]
+        return (torch.where(cols == i0[:, None], 1.0 - lam, 0.0)
+                + torch.where(cols == i1, lam, 0.0))            # (n_out, n_in)
+
+    y = torch.einsum("bhw,ow->bho", x.float(), lerp_matrix(out_w, w))
+    return torch.einsum("bho,ph->bpo", y, lerp_matrix(out_h, h))
+
+
 def _project(points: torch.Tensor, cams: torch.Tensor):
     """points (B, N, 3), cams (B, V, 2, 4, 4) → uv (B, V, N, 2), z (B, V, N),
     in f32 whatever the inputs' dtype."""

@@ -1,5 +1,6 @@
-"""Train / eval steps of the port on one card (data parallelism waits)."""
+"""Train / eval steps and data parallelism over ``torch.distributed``."""
 
+from pointmvsnet_tpu_torch.parallel import distributed
 from pointmvsnet_tpu_torch.parallel.train_step import (
     TrainState,
     make_eval_step,
@@ -7,4 +8,4 @@ from pointmvsnet_tpu_torch.parallel.train_step import (
     put_batch,
 )
 
-__all__ = ["TrainState", "make_train_step", "make_eval_step", "put_batch"]
+__all__ = ["TrainState", "make_train_step", "make_eval_step", "put_batch", "distributed"]

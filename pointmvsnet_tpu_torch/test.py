@@ -10,7 +10,10 @@ depth, and the MVSNet-format export that ``fuse.py`` reads
 (``OUTPUT_DIR/depths/scan<n>/``). The weights come from ``TEST.WEIGHT``,
 else from the newest checkpoint under ``OUTPUT_DIR/checkpoints``, else
 from ``cfg.RNG_SEED`` (``utils.convert.init_params``, as ``Predictor``).
-One card; band- and view-parallel eval (``PARALLEL.BAND`` / ``VIEW`` > 1)
+Under torchrun (``PARALLEL.DATA`` -1 or the world size) each rank exports
+every W-th item of the split into the same depth directory, with
+``TEST.BATCH_SIZE`` items per batch, and the summary is over every rank's
+batches. Band- and view-parallel eval (``PARALLEL.BAND`` / ``VIEW`` > 1)
 are not ported (ROADMAP queue 1).
 """
 
@@ -27,12 +30,12 @@ from pointmvsnet_tpu_torch import resolve_device
 from pointmvsnet_tpu_torch.config import get_default_cfg
 from pointmvsnet_tpu_torch.dataset.build import build_data_loader
 from pointmvsnet_tpu_torch.models import build_loss_fn, build_model, pointmvsnet_metrics
-from pointmvsnet_tpu_torch.parallel import TrainState, make_eval_step, put_batch
+from pointmvsnet_tpu_torch.parallel import TrainState, distributed, make_eval_step, put_batch
 from pointmvsnet_tpu_torch.utils.checkpoint import Checkpointer
 from pointmvsnet_tpu_torch.utils.convert import init_params
 from pointmvsnet_tpu_torch.utils.eval_file_logger import eval_file_logger
 from pointmvsnet_tpu_torch.utils.logger import setup_logger
-from pointmvsnet_tpu_torch.utils.metric_logger import MetricLogger
+from pointmvsnet_tpu_torch.utils.metric_logger import MetricLogger, global_summary
 from pointmvsnet_tpu_torch.utils.solver import build_optimizer
 
 
@@ -56,8 +59,10 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
         if cfg.PARALLEL[key] > 1:
             raise NotImplementedError(
                 f"PARALLEL.{key}={cfg.PARALLEL[key]}: band- and view-parallel eval are "
-                f"not ported (ROADMAP queue 1); the port evaluates on one card")
+                f"not ported (ROADMAP queue 1); the port splits whole items over the "
+                f"ranks of a torchrun launch (PARALLEL.DATA)")
     dev = resolve_device(device)
+    distributed.init_data_parallel(cfg.PARALLEL.DATA, dev)
     logger = setup_logger("pointmvsnet_tpu_torch.test", output_dir)
     model = build_model(cfg, dev)
     loader = build_data_loader(cfg, "test")
@@ -76,7 +81,7 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
         model.load_state_dict(init_params(model, torch.Generator().manual_seed(cfg.RNG_SEED)))
         logger.info("weights: none given, drawn from RNG_SEED=%d", cfg.RNG_SEED)
 
-    eval_step = make_eval_step(build_loss_fn(cfg), pointmvsnet_metrics, kwargs)
+    eval_step = make_eval_step(build_loss_fn(cfg), pointmvsnet_metrics, kwargs, sharded=False)
     meters = MetricLogger()
     depth_dir = os.path.join(output_dir, "depths")
     os.makedirs(depth_dir, exist_ok=True)
@@ -98,13 +103,16 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
         if it % cfg.TEST.LOG_PERIOD == 0:
             logger.info("test iter %d/%d  %s", it, len(loader), meters)
     t_end = time.time()
-    elapsed = t_end - t_start
-    after_first = (n_maps - n_first) / (t_end - t_first) if n_maps > n_first else float("nan")
+    # every rank's maps over the slowest rank's time
+    counts = distributed.all_gather_object((n_maps, n_first, t_end - t_start, t_end - t_first))
+    n_maps, n_first = sum(c[0] for c in counts), sum(c[1] for c in counts)
+    elapsed, after = max(c[2] for c in counts), max(c[3] for c in counts)
+    after_first = (n_maps - n_first) / after if n_maps > n_first else float("nan")
     if n_maps:
         logger.info("exported %d depth maps in %.1fs (%.3f maps/s; %.3f after the first batch)",
                     n_maps, elapsed, n_maps / elapsed, after_first)
     checkpointer.close()
-    return dict(meters.summary, maps=n_maps, maps_per_s=n_maps / elapsed,
+    return dict(global_summary(meters), maps=n_maps, maps_per_s=n_maps / elapsed,
                 maps_per_s_after_first=after_first), depth_dir
 
 
@@ -121,6 +129,7 @@ def main(argv=None):
         stem = os.path.splitext(os.path.basename(args.cfg))[0] if args.cfg else "default"
         output_dir = os.path.join("outputs", stem)
     os.makedirs(output_dir, exist_ok=True)
+    distributed.init_data_parallel(cfg.PARALLEL.DATA, resolve_device(args.device))
     logger = setup_logger("pointmvsnet_tpu_torch", output_dir)
     logger.info("config %s, overrides %s, device %s", args.cfg or "(defaults)", args.opts,
                 args.device)

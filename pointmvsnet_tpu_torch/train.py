@@ -2,15 +2,20 @@
 
     python -m pointmvsnet_tpu_torch.train [--cfg configs/dtu_wde3.yaml] \\
         [--device cuda|cpu] DATA.TRAIN.ROOT_DIR data/dtu TRAIN.BATCH_SIZE 4
+    torchrun --nproc_per_node=N -m pointmvsnet_tpu_torch.train ...   # N cards
 
 Epoch loop with the coarse-only curriculum (PointFlow off for the first
 ``SCHEDULER.INIT_EPOCH`` epochs), losses logged every ``TRAIN.LOG_PERIOD``
 steps, validation every ``TRAIN.VAL_PERIOD`` epochs, a checkpoint per
-``TRAIN.CHECKPOINT_PERIOD`` epochs and auto-resume from the newest. One
-card; the weights start from torch's default initialisation under
-``RNG_SEED`` (conv and dense kernels uniform in ±1/√fan_in, as the JAX
-package's ``conv_kernel_init``; BatchNorm at identity). float32 only: bf16
-training waits for its own parity test.
+``TRAIN.CHECKPOINT_PERIOD`` epochs and auto-resume from the newest. The
+weights start from torch's default initialisation under ``RNG_SEED`` (conv
+and dense kernels uniform in ±1/√fan_in, as the JAX package's
+``conv_kernel_init``; BatchNorm at identity), on every rank. ``MODEL.DTYPE``
+float32 or bfloat16 (parameters and optimizer state stay f32). Under
+torchrun the run is data-parallel over the launch's processes
+(``PARALLEL.DATA`` -1 or the world size; ``parallel/distributed.py``):
+``TRAIN.BATCH_SIZE`` is the global batch, rank 0 logs and writes the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from pointmvsnet_tpu_torch.dataset.build import build_data_loader
 from pointmvsnet_tpu_torch.models import build_loss_fn, build_model, pointmvsnet_metrics
 from pointmvsnet_tpu_torch.parallel import (
     TrainState,
+    distributed,
     make_eval_step,
     make_train_step,
     put_batch,
@@ -63,18 +69,14 @@ def train(cfg, output_dir: str, max_steps_per_epoch: Optional[int] = None,
     """Run the epochs from the newest checkpoint (if ``AUTO_RESUME``) to
     ``SCHEDULER.MAX_EPOCH``. → the final TrainState."""
     dev = resolve_device(device)
-    if cfg.MODEL.DTYPE != "float32":
-        raise NotImplementedError(f"MODEL.DTYPE={cfg.MODEL.DTYPE!r}: only float32 "
-                                  f"training is ported")
-    if cfg.PARALLEL.DATA not in (1, -1):
-        raise NotImplementedError(f"PARALLEL.DATA={cfg.PARALLEL.DATA}: the port "
-                                  f"trains on one card (data parallelism is not ported)")
+    world = distributed.init_data_parallel(cfg.PARALLEL.DATA, dev)
     logger = setup_logger("pointmvsnet_tpu_torch.train", output_dir)
     tb = TensorboardLogger(os.path.join(output_dir, "tb"))
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.RNG_SEED)
         model = build_model(cfg, dev)
+    distributed.assert_replicated(model)
     loss_fn = build_loss_fn(cfg)
     flow_capable = cfg.MODEL.NAME != "mvsnet"
 
@@ -89,7 +91,9 @@ def train(cfg, output_dir: str, max_steps_per_epoch: Optional[int] = None,
                        if max_steps_per_epoch else len(train_loader))
     state = TrainState(model, build_optimizer(cfg, dict(model.named_parameters()),
                                                steps_per_epoch))
-    logger.info("device: %s", torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
+    logger.info("device: %s, %d rank(s), global batch %d",
+                torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu", world,
+                cfg.TRAIN.BATCH_SIZE)
 
     checkpointer = Checkpointer(os.path.join(output_dir, "checkpoints"))
     state, start_epoch = checkpointer.load(state, resume=cfg.AUTO_RESUME)
@@ -186,6 +190,7 @@ def main(argv=None) -> TrainState:
         stem = os.path.splitext(os.path.basename(args.cfg))[0] if args.cfg else "default"
         output_dir = os.path.join("outputs", stem)
     os.makedirs(output_dir, exist_ok=True)
+    distributed.init_data_parallel(cfg.PARALLEL.DATA, resolve_device(args.device))
     logger = setup_logger("pointmvsnet_tpu_torch", output_dir)
     logger.info("config %s, overrides %s", args.cfg or "(defaults)", args.opts)
     np.random.seed(cfg.RNG_SEED)

@@ -8,6 +8,8 @@ the step counter and the epoch; the newest ``MAX_TO_KEEP`` are kept.
 ``TEST.WEIGHT``): a ``.pt`` file, or a directory whose newest
 ``<epoch>.pt`` is taken; a file may hold only ``{"model": state_dict}``.
 The JAX package's orbax checkpoints are not read here (ROADMAP queue 1).
+Under data parallelism rank 0 writes (the state is replicated) and every
+rank reads the same file.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from pointmvsnet_tpu_torch.parallel import distributed
 from pointmvsnet_tpu_torch.parallel.train_step import TrainState
 
 MAX_TO_KEEP = 5
@@ -36,15 +39,18 @@ class Checkpointer:
         return os.path.join(self.directory, f"{epoch}.pt")
 
     def save(self, state: TrainState, epoch: int) -> None:
-        """Write the state of the end of ``epoch`` (atomically), then drop
-        all but the newest ``MAX_TO_KEEP`` files."""
-        tmp = self.path(epoch) + ".tmp"
-        torch.save({"model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "step": state.step, "epoch": epoch}, tmp)
-        os.replace(tmp, self.path(epoch))
-        for old in self._epochs()[:-MAX_TO_KEEP]:
-            os.remove(self.path(old))
+        """Write the state of the end of ``epoch`` (atomically, on rank 0),
+        then drop all but the newest ``MAX_TO_KEEP`` files; every rank
+        returns once the file is there."""
+        if distributed.rank() == 0:
+            tmp = self.path(epoch) + ".tmp"
+            torch.save({"model": state.model.state_dict(),
+                        "optimizer": state.optimizer.state_dict(),
+                        "step": state.step, "epoch": epoch}, tmp)
+            os.replace(tmp, self.path(epoch))
+            for old in self._epochs()[:-MAX_TO_KEEP]:
+                os.remove(self.path(old))
+        distributed.barrier()
 
     def latest_epoch(self) -> Optional[int]:
         epochs = self._epochs()

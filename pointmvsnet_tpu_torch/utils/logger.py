@@ -1,5 +1,6 @@
 """stdout + file logging: the port's copy of
-``pointmvsnet_tpu/utils/logger.py``."""
+``pointmvsnet_tpu/utils/logger.py``. Under data parallelism rank 0 logs;
+the other ranks print warnings and errors only, and write no file."""
 
 from __future__ import annotations
 
@@ -7,11 +8,14 @@ import logging
 import os
 import sys
 
+from pointmvsnet_tpu_torch.parallel import distributed
+
 
 def setup_logger(name: str = "pointmvsnet_tpu_torch", save_dir: str = "",
                  filename: str = "log.txt") -> logging.Logger:
     logger = logging.getLogger(name)
-    logger.setLevel(logging.INFO)
+    lead = distributed.rank() == 0
+    logger.setLevel(logging.INFO if lead else logging.WARNING)
     logger.propagate = False
     if logger.handlers:
         return logger
@@ -19,7 +23,7 @@ def setup_logger(name: str = "pointmvsnet_tpu_torch", save_dir: str = "",
     sh = logging.StreamHandler(stream=sys.stdout)
     sh.setFormatter(fmt)
     logger.addHandler(sh)
-    if save_dir:
+    if save_dir and lead:
         os.makedirs(save_dir, exist_ok=True)
         fh = logging.FileHandler(os.path.join(save_dir, filename))
         fh.setFormatter(fmt)

@@ -1,10 +1,13 @@
 """Smoothed meters for losses, metrics and timings: the port's copy of
-``pointmvsnet_tpu/utils/metric_logger.py``."""
+``pointmvsnet_tpu/utils/metric_logger.py``, and ``global_summary``, the
+meters' averages over every rank's updates."""
 
 from __future__ import annotations
 
 from collections import deque
 from typing import Dict
+
+from pointmvsnet_tpu_torch.parallel import distributed
 
 
 class AverageMeter:
@@ -61,3 +64,17 @@ class MetricLogger:
     @property
     def summary(self) -> Dict[str, float]:
         return {k: m.global_avg for k, m in self.meters.items()}
+
+
+def global_summary(meters: MetricLogger) -> Dict[str, float]:
+    """``meters.summary`` over the updates of every rank: the weighted sums
+    and counts of each meter, gathered and added (a rank may have updated
+    none)."""
+    totals: Dict[str, list] = {}
+    for part in distributed.all_gather_object(
+            {k: (m.total, m.count) for k, m in meters.meters.items()}):
+        for k, (total, count) in part.items():
+            t = totals.setdefault(k, [0.0, 0])
+            t[0] += total
+            t[1] += count
+    return {k: total / max(count, 1) for k, (total, count) in totals.items()}

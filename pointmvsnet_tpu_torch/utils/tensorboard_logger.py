@@ -1,19 +1,25 @@
 """TensorBoard scalar logging: the port's copy of
 ``pointmvsnet_tpu/utils/tensorboard_logger.py``. A no-op where tensorboardX
-is not installed, as in the JAX package."""
+is not installed, as in the JAX package, and on every rank but rank 0
+under data parallelism."""
 
 from __future__ import annotations
 
 from typing import Dict
 
+from pointmvsnet_tpu_torch.parallel import distributed
+
 
 class TensorboardLogger:
     def __init__(self, log_dir: str):
+        self._writer = None
+        if distributed.rank() != 0:
+            return
         try:
             from tensorboardX import SummaryWriter
-            self._writer = SummaryWriter(log_dir)
         except ImportError:  # pragma: no cover
-            self._writer = None
+            return
+        self._writer = SummaryWriter(log_dir)
 
     def add_scalars(self, tag_values: Dict[str, float], step: int,
                     prefix: str = "") -> None:

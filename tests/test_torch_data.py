@@ -22,6 +22,7 @@ from pointmvsnet_tpu_torch.dataset.build import build_data_loader
 from pointmvsnet_tpu_torch.dataset.dtu import DTUTrainValDataset
 from pointmvsnet_tpu_torch.dataset.preprocess import resize_image
 from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W, D = 48, 64, 16
 TREE = dict(scans=[2, 3], num_views=3, height=H, width=W, num_depth=D)

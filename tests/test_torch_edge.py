@@ -19,6 +19,7 @@ from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
 from pointmvsnet_tpu_torch.ops.edge import masked_window_max
 from pointmvsnet_tpu_torch.ops.knn import gather_knn
 from pointmvsnet_tpu_torch.utils.convert import jax_to_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 G, H, W, K, WIN = 5, 16, 24, 16, 5
 P = G * H * W

@@ -30,6 +30,7 @@ from pointmvsnet_tpu_torch.dataset.preprocess import resize_image, scale_image
 from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu, make_synthetic_tanks
 from pointmvsnet_tpu_torch.dataset.tanks import TanksDataset, pick_shape
 from pointmvsnet_tpu_torch.utils.eval_file_logger import eval_file_logger
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W, V, D = 64, 128, 3, 16
 CFG_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "configs",
@@ -341,7 +342,10 @@ def cli_exports(train_tree, tmp_path_factory):
     with PRNGKey(RNG_SEED)) give uniform softmaxes at every stage here
     (coarse depth 443.75 everywhere, PointFlow moving nothing), so they
     would not test the values; these are drawn as tests/test_torch_model.py
-    draws them (kernels ×2: the flow head's softmax is not flat)."""
+    draws them (kernels ×2: the flow head's softmax is not flat). The JAX
+    CLI builds the TrainState it restores into with an eager ``model.init``
+    (about 80 s on the CPU, then overwritten by the restore); it is handed
+    the TrainState of the checkpoint instead, of the same structure."""
     import jax.numpy as jnp
     from flax import traverse_util
 
@@ -369,9 +373,10 @@ def cli_exports(train_tree, tmp_path_factory):
     tree = traverse_util.unflatten_dict({tuple(k.split("/")): jnp.asarray(v)
                                          for k, v in flat.items()})
     params = tree["params"]
-    JCheckpointer(str(work / "jax_ckpt")).save(JTrainState(
-        step=jnp.zeros((), jnp.int32), params=params, batch_stats=tree["batch_stats"],
-        opt_state=jbuild_optimizer(cfg, 1).init(params)), 0)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                         batch_stats=tree["batch_stats"],
+                         opt_state=jbuild_optimizer(cfg, 1).init(params))
+    JCheckpointer(str(work / "jax_ckpt")).save(jstate, 0)
 
     sd = build_model(get_default_cfg(), "cpu").state_dict()
     converted = jax_to_torch(flat)
@@ -380,12 +385,11 @@ def cli_exports(train_tree, tmp_path_factory):
     weight = str(work / "weights.pt")
     torch.save({"model": sd}, weight)
 
-    os.environ["PMVS_NO_COMPILE_CACHE"] = "1"
-    try:
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PMVS_NO_COMPILE_CACHE", "1")
+        mp.setattr(jtest, "create_train_state", lambda *args, **kwargs: jstate)
         jtest.main(["--cfg", CFG_FILE, "OUTPUT_DIR", str(work / "jax"),
                     "TEST.WEIGHT", str(work / "jax_ckpt")] + opts)
-    finally:
-        del os.environ["PMVS_NO_COMPILE_CACHE"]
     summary, depth_dir = test.main(["--cfg", CFG_FILE, "--device", "cpu",
                                     "OUTPUT_DIR", str(work / "port"), "TEST.WEIGHT", weight]
                                    + opts)

@@ -21,6 +21,7 @@ from pointmvsnet_tpu_torch import fuse
 from pointmvsnet_tpu_torch.dataset import io
 from pointmvsnet_tpu_torch.postprocess import fusion, metrics, ply
 from pointmvsnet_tpu_torch.postprocess.fusion_torch import fuse_depth_maps_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 PAIRS = {0: [1, 2, 3], 1: [0, 2], 2: [1, 3, 4], 3: [2, 4], 4: [3]}   # ragged
 

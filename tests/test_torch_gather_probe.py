@@ -23,6 +23,7 @@ from pointmvsnet_tpu_torch.ops.window_gather import (
     window_gather,
     window_gather_cuda,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, WIDTH, SPAN, ROWS = 2048, 128, 1024, 2000
 BODIES = {"onehot": _onehot_body, "loop": _loop_body, "take": _take_body}

@@ -16,6 +16,7 @@ import pytest
 
 from pointmvsnet_tpu_torch.dataset import io, jpeg
 from pointmvsnet_tpu_torch.dataset.synthetic import _texture
+from torch_threads import one_torch_thread  # noqa: F401
 
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
             "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,

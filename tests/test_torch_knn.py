@@ -12,6 +12,7 @@ from pointmvsnet_tpu.ops.knn import gather_knn as jgather
 from pointmvsnet_tpu.ops.knn import window_knn as jwindow_knn
 from pointmvsnet_tpu.ops.pallas.knn import pallas_window_knn_mask
 from pointmvsnet_tpu_torch.ops.knn import gather_knn, window_knn, window_knn_mask
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, G, H, W, K, WIN = 2, 5, 16, 24, 16, 5
 P = G * H * W

@@ -19,6 +19,7 @@ from pointmvsnet_tpu_torch.models.image_conv import ImageConv
 from pointmvsnet_tpu_torch.models.pointmvsnet import PointMVSNet
 from pointmvsnet_tpu_torch.models.volume_conv import VolumeConv
 from pointmvsnet_tpu_torch.utils.convert import jax_to_torch, load_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def jax_variables(module, rng, *args, kernel_scale=1.0, **kwargs):

@@ -21,6 +21,7 @@ from pointmvsnet_tpu_torch.ops import geometry as tgeo
 from pointmvsnet_tpu_torch.ops import sampling as tsamp
 from pointmvsnet_tpu_torch.ops.edge import masked_window_max_cuda
 from pointmvsnet_tpu_torch.ops.knn import window_knn_cuda
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 H, W = 12, 16          # feature-map size of the sampling tests
@@ -110,6 +111,21 @@ def test_regular_grid_sample(rng, sx, sy, oh, ow):
     want = np.asarray(jsamp.regular_grid_sample(jnp.asarray(feat), sx, sy, oh, ow))
     got = tsamp.regular_grid_sample(t(feat), sx, sy, oh, ow).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape,out", [((16, 20), (32, 40)), ((7, 9), (28, 36)),
+                                       ((13, 17), (26, 31))])
+def test_resize_bilinear(rng, shape, out):
+    """The flow iterations' depth upsampling: within 1e-4 (f32 on values
+    near 500) of F.interpolate and of the JAX package's jax.image.resize."""
+    import jax
+    import torch.nn.functional as F
+    x = (500 + 20 * rng.randn(2, *shape)).astype(np.float32)
+    got = tsamp.resize_bilinear(t(x), *out)
+    want = np.asarray(jax.image.resize(jnp.asarray(x), (2, *out), method="bilinear"))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    ref = F.interpolate(t(x)[:, None], out, mode="bilinear", align_corners=False)[:, 0]
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4, rtol=0)
 
 
 def test_fetch_features_and_moments(rng):

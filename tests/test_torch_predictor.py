@@ -8,6 +8,7 @@ import torch
 from pointmvsnet_tpu_torch.config import get_default_cfg
 from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
 from pointmvsnet_tpu_torch.predictor import Predictor
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def small_cfg(norm):

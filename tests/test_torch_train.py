@@ -32,6 +32,7 @@ from pointmvsnet_tpu_torch.ops.knn import window_knn
 from pointmvsnet_tpu_torch.utils.convert import jax_to_torch
 from pointmvsnet_tpu_torch.utils.solver import build_optimizer
 from test_torch_model import flatten, jax_variables, unflatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 # ------------------------------------------------------------------ loss
 
@@ -310,12 +311,16 @@ def test_auto_resume_continues(env):
     assert "2.pt" in os.listdir(os.path.join(out, "checkpoints"))
 
 
-@pytest.mark.parametrize("key,value", [("MODEL.DTYPE", "bfloat16"), ("PARALLEL.DATA", 2)])
-def test_train_refuses_what_is_not_ported(env, key, value):
+@pytest.mark.parametrize("key,value,error", [("MODEL.DTYPE", "float16", KeyError),
+                                             ("PARALLEL.DATA", 2, ValueError)])
+def test_train_refuses_what_is_not_ported(env, key, value, error):
+    """A dtype the port has no model for, and PARALLEL.DATA=2 in a launch
+    of one process (bf16 and PARALLEL.DATA = world size train:
+    tests/test_torch_bf16_train.py, tests/test_torch_distributed.py)."""
     from pointmvsnet_tpu_torch.train import train
     cfg = env[0].clone()
     cfg.merge_from_list([key, value])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         train(cfg, env[1], device="cpu")
 
 

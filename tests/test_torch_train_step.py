@@ -57,6 +57,7 @@ from pointmvsnet_tpu_torch.parallel import TrainState, make_train_step
 from pointmvsnet_tpu_torch.utils.convert import jax_to_torch, load_jax_variables
 from pointmvsnet_tpu_torch.utils.solver import build_optimizer
 from test_torch_model import flatten, jax_variables, unflatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, V, H, W, D = 2, 3, 64, 128, 16
 KW = dict(is_flow=True, img_scales=(0.25, 0.5), inter_scales=(0.75, 0.375),
