@@ -4,8 +4,12 @@
 
 Phases, one or more lines each; any failure raises and exits non-zero:
 
-1. env     torch / CUDA versions, card name and power limit; TF32 off for
-           the f32 phases.
+1. env     torch / CUDA versions, card name and power limit, and torch's
+           TF32 flags as the process starts. The script does not set them:
+           each entry point turns TF32 off itself, and the parity, train
+           and export phases check that it did (flags off after
+           ``Predictor``, ``train()`` and ``test.test``, each entered with
+           TF32 allowed), so every f32 gate holds for what users get.
 2. build   nvcc builds the three kernels from csrc/, in parallel.
 3. kernels each CUDA kernel of the model against its plain PyTorch version
            on the card, at every shape the paper-eval forward gives it:
@@ -26,9 +30,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            at one whose rows fill the upper slab and the padded last
            window; kernel, plain, torch.index_select and bound times; then
            the probe's own entry point.
-5. parity  the port at 64×128, V=3, D=16, f32: card (kernels) against the
-           CPU (plain versions), same seeded weights; depth bars of
-           tests/test_full_parity.py.
+5. parity  the port at 64×128, V=3, D=16, f32, through Predictor: card
+           (kernels) against the CPU (plain versions), same seeded
+           weights; depth bars of tests/test_full_parity.py.
 6. serve   Predictor at the paper-eval config (640×512, V=5, D=96, bf16,
            BatchNorm eval, 3 PointFlow iterations) answers 3 requests on a
            synthetic scene; each must launch exactly 3 kNN and 9 masked-max
@@ -57,19 +61,33 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            item; the fuse CLI with the torch backend on the card, with
            numpy and with torch on the CPU, each pair held to the JAX
            package's bar between its backends (equal counts, 1e-3).
-10. fusion-scan  both fusion backends on 49 noisy true depth maps of
+10. weights  the weights the JAX package loads. A reference-layout .pth
+           (tests/torch_mirror.py's TorchPointMVSNet at full width, BN
+           statistics not an identity, a ``module.`` prefix) converted by
+           the convert CLI in a subprocess and read by
+           ``Predictor(weight_path=)``: one paper-eval request (bf16, 3 kNN
+           and 9 masked-max launches) bit-equal to Predictor given the
+           in-process conversion; then in f32 at the parity config the
+           port from the converted weights against the mirror's own
+           forward on the card (its kNN selection on the host), with
+           tests/test_full_parity.py's bars. Then the orbax checkpoint the
+           JAX package wrote (tests/data/orbax_tiny/), decoded by
+           utils/orbax_reader.py on this host, the port on the card against
+           the JAX package's depth beside it (expected.npz), the same bars.
+           Conversion and read times, host clock.
+11. fusion-scan  both fusion backends on 49 noisy true depth maps of
            640×512 (a DTU eval scan's view count) at the fuse CLI's
            defaults: times, the card's peak memory, each cloud's accuracy
            / completeness against the scene; the card held to torch on the
            CPU on 9 of the maps (bars in phase_fusion_scan).
-11. train-bf16  the train phase with MODEL.DTYPE bfloat16: step counter,
+12. train-bf16  the train phase with MODEL.DTYPE bfloat16: step counter,
            checkpoints and resume, 0 skipped steps, finite parameters, 2
            kNN and 0 masked-max launches per flow step, 2 kNN and 6
            masked-max (bf16; 4 at F=32, 2 at F=64) per validation batch,
            the validation batch's kernel calls bit-equal to their plain
            versions, step time and peak memory beside the f32 phase's, a
            profiled step; then one B=2 BatchNorm bf16 flow step, finite.
-12. train-dp  train() inside a one-rank NCCL group bit-equal to train()
+13. train-dp  train() inside a one-rank NCCL group bit-equal to train()
            without a group (2 + 2 steps, deterministic algorithms, in a
            process of its own); then two ranks on cuda:0 over gloo at
            64×128, global B=4, BN, f32 and bf16, a coarse-only and a flow
@@ -79,10 +97,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 
 Then a JSON line of per-kernel numbers (``launches`` per serving request;
 per train step and validation batch in f32 and in bf16; per exported
-map), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
-``--phases train,train-bf16,train-dp`` (any subset of the three) runs
-only those, to try them on the card, and prints no result lines. Imports
-nothing of JAX.
+map; per request from converted weights), the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. ``--phases train,train-bf16,train-dp,
+weights`` (any subset of the four) runs only those, to try them on the
+card, and prints no result lines. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -112,6 +130,24 @@ def fail(msg: str):
 def check(cond: bool, msg: str):
     if not cond:
         fail(msg)
+
+
+def tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def allow_tf32() -> None:
+    """TF32 allowed for convolutions and matmuls, as a process may find the
+    flags before any entry point ran: the next entry point must turn both off."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def check_f32(what: str) -> None:
+    flags = tf32_flags()
+    check(flags == (False, False), f"{what} left TF32 flags {flags}, want both off")
+    print(f"tf32: after {what}, entered with TF32 allowed: cudnn.allow_tf32={flags[0]} "
+          f"matmul.allow_tf32={flags[1]}", flush=True)
 
 
 def smi_line() -> str:
@@ -397,28 +433,24 @@ def phase_parity():
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
     from pointmvsnet_tpu_torch.models import build_model
+    from pointmvsnet_tpu_torch.predictor import Predictor
     from pointmvsnet_tpu_torch.utils.convert import init_params
 
     cfg = get_default_cfg()
+    cfg.DATA.TEST.NUM_VIRTUAL_PLANE = 16       # IMG_SCALES (0.25, 0.5, 1.0) by default
     images, cams, _ = make_scene_batch(1, 3, 64, 128, 16)
-    kw = dict(img_scales=(0.25, 0.5, 1.0), inter_scales=(0.75, 0.375, 0.1875),
-              num_virtual_plane=16)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        model = build_model(cfg, device=dev)
-        if dev == "cuda":
-            sd = init_params(model, torch.Generator().manual_seed(0))
-        model.load_state_dict(sd)
-        with torch.inference_mode():
-            outs[dev] = {k: v.float().cpu() for k, v in model(
-                torch.tensor(images, device=dev), torch.tensor(cams, device=dev), **kw).items()}
+    sd = init_params(build_model(cfg, "cpu"), torch.Generator().manual_seed(0))
+    allow_tf32()
+    card = Predictor(cfg, sd, device="cuda", normalize=False)
+    check_f32("Predictor(cfg) on cuda")
+    outs = {"cuda": card(images[0], cams[0]),
+            "cpu": Predictor(cfg, sd, device="cpu", normalize=False)(images[0], cams[0])}
     report = []
     for key in ("coarse_depth_map", "flow1", "flow2", "flow3"):
-        d = (outs["cuda"][key] - outs["cpu"][key]).abs()
-        report.append(f"{key} max {d.max().item():.3e} mean {d.mean().item():.3e}")
-        check(d.max().item() < 0.05 and d.mean().item() < 0.005,
-              f"parity {key}: max {d.max().item()} mean {d.mean().item()}")
-    c = (outs["cuda"]["coarse_prob_map"] - outs["cpu"]["coarse_prob_map"]).abs().max().item()
+        d = np.abs(outs["cuda"][key] - outs["cpu"][key])
+        report.append(f"{key} max {d.max():.3e} mean {d.mean():.3e}")
+        check(d.max() < 0.05 and d.mean() < 0.005, f"parity {key}: max {d.max()} mean {d.mean()}")
+    c = float(np.abs(outs["cuda"]["coarse_prob_map"] - outs["cpu"]["coarse_prob_map"]).max())
     check(c < 0.02, f"parity confidence: max {c}")
     print(f"parity: f32 card vs cpu at 64x128 V=3 D=16: {'; '.join(report)}; "
           f"confidence max {c:.3e}", flush=True)
@@ -652,10 +684,14 @@ def phase_train(dev, keep_ckpt: str, dtype: str = "float32") -> dict:
         want = (2 * n_flow + n_flow, n_edge * n_flow)
         for max_epoch, steps in ((2, 4), (3, 6)):
             cfg.SCHEDULER.MAX_EPOCH = max_epoch
+            if max_epoch == 2:
+                allow_tf32()
             knn.launches = edge.launches = 0
             t0 = time.perf_counter()
             state = train(cfg, out, max_steps_per_epoch=2, device="cuda")
             torch.cuda.synchronize()
+            if max_epoch == 2:
+                check_f32(f"train() ({label})")
             got = (knn.launches, edge.launches)
             check(state.step == steps, f"{name}: step counter {state.step}, want {steps}")
             check(state.optimizer.skipped_steps == 0, f"{name}: skipped a non-finite step")
@@ -921,8 +957,6 @@ def nccl_one_rank(rank: int, tree: str, out: str, store: str) -> None:
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_default_cfg()
     for split in ("TRAIN", "VAL"):
         cfg.DATA[split].ROOT_DIR = tree
@@ -1124,10 +1158,12 @@ def phase_export(weight: str, work: str):
             "DATA.TEST.ROOT_DIR", tree, "DATA.TEST.NUM_VIEW", str(views),
             "DATA.TEST.NUM_VIRTUAL_PLANE", str(depths), "OUTPUT_DIR", out,
             "TEST.WEIGHT", weight]
+    allow_tf32()
     knn.launches = edge.launches = 0
     t0 = time.perf_counter()
     summary, depth_dir = test_cli.main(args)
     t_cli = time.perf_counter() - t0
+    check_f32("test.test (the test CLI)")
     nk, ne = knn.launches, edge.launches
     n_maps = summary["maps"]
     check(n_maps == views, f"export: {n_maps} maps, want {views}")
@@ -1192,6 +1228,144 @@ def phase_export(weight: str, work: str):
     for name, c in pairs.items():
         check(clouds_agree(c), f"fuse {name}: {c}")
     return nk // n_maps, ne // n_maps
+
+
+def phase_weights(work: str):
+    """Weights the JAX package loads, on the card (see the module
+    docstring). → launches of the request from converted weights (kNN,
+    masked max)."""
+    import importlib.util
+
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
+    from pointmvsnet_tpu_torch.models import build_model
+    from pointmvsnet_tpu_torch.ops import edge, knn
+    from pointmvsnet_tpu_torch.predictor import Predictor
+    from pointmvsnet_tpu_torch.utils import torch_convert
+    from pointmvsnet_tpu_torch.utils.orbax_reader import read_orbax
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(root, "configs", "dtu_wde3.yaml")
+    # by its path: the card's machine has a site package named "tests"
+    spec = importlib.util.spec_from_file_location(
+        "torch_mirror", os.path.join(root, "tests", "torch_mirror.py"))
+    mirror = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mirror)
+
+    def depth_bars(what, got, want, keys):
+        report = []
+        for key in keys:
+            d = np.abs(got[key] - want[key])
+            report.append(f"{key} max {d.max():.3e} mean {d.mean():.3e}")
+            check(np.isfinite(got[key]).all() and d.max() < 0.05 and d.mean() < 0.005,
+                  f"{what} {key}: max {d.max()} mean {d.mean()}")
+        c = float(np.abs(got["coarse_prob_map"] - want["coarse_prob_map"]).max())
+        check(c < 0.02, f"{what} confidence: max {c}")
+        return f"{'; '.join(report)}; confidence max {c:.3e}"
+
+    # the reference layout at full width, saved as the reference saves it. BN
+    # is no identity and the kernels are torch's init ×2: with torch's init
+    # alone the outputs do not change when two same-shape tensors of the
+    # image or volume stages swap places (my CPU runs); ×2 as the CPU tests
+    # draw them (tests/test_torch_model.py KERNEL_SCALE)
+    torch.manual_seed(7)
+    tm = mirror.TorchPointMVSNet().eval()
+    rng = np.random.RandomState(3)
+    with torch.no_grad():
+        for m in tm.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.copy_(torch.from_numpy(rng.randn(*m.running_mean.shape) * 0.3))
+                m.running_var.copy_(torch.from_numpy(0.5 + rng.rand(*m.running_var.shape)))
+                m.weight.copy_(torch.from_numpy(0.5 + rng.rand(*m.weight.shape)))
+                m.bias.copy_(torch.from_numpy(rng.randn(*m.bias.shape) * 0.3))
+            elif isinstance(m, torch.nn.modules.conv._ConvNd):
+                m.weight.mul_(2)
+    pth, pt = os.path.join(work, "reference.pth"), os.path.join(work, "converted.pt")
+    torch.save({"model": {"module." + k: v for k, v in tm.state_dict().items()}}, pth)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "pointmvsnet_tpu_torch.utils.torch_convert",
+                    "--pth", pth, "--cfg", cfg_file, "--out", pt], check=True, cwd=root,
+                   timeout=600)
+    t_cli = time.perf_counter() - t0
+    cfg = get_default_cfg()
+    cfg.merge_from_file(cfg_file)
+    t0 = time.perf_counter()
+    sd = torch_convert.convert_state_dict(torch_convert.load_pth(pth), build_model(cfg, "cpu"))
+    t_conv = (time.perf_counter() - t0) * 1e3
+
+    # a paper-eval request from the converted weights, then from the in-process conversion
+    cfg.MODEL.DTYPE = "bfloat16"
+    h, w = cfg.DATA.TEST.IMG_HEIGHT, cfg.DATA.TEST.IMG_WIDTH
+    v, d = cfg.DATA.TEST.NUM_VIEW, cfg.DATA.TEST.NUM_VIRTUAL_PLANE
+    images, cams, _ = make_scene_batch(1, v, h, w, d, seed=0)
+    pred = Predictor(cfg, weight_path=pt, device="cuda")
+    knn.launches = edge.launches = 0
+    out = pred(images[0], cams[0])
+    nk, ne = knn.launches, edge.launches
+    check((nk, ne) == (3, 9), f"weights: {nk} kNN and {ne} masked-max launches, want 3 and 9")
+    check(out["flow3"].shape == (h, w) and np.isfinite(out["flow3"]).all(),
+          f"weights: flow3 {out['flow3'].shape}, finite {np.isfinite(out['flow3']).all()}")
+    del pred
+    same = Predictor(cfg, state_dict=sd, device="cuda")(images[0], cams[0])
+    check(same_bits(torch.from_numpy(out["depth"]), torch.from_numpy(same["depth"])),
+          "weights: the request from the converted .pt differs from the in-process conversion")
+    print(f"weights: reference .pth (TorchPointMVSNet, {len(sd)} tensors) -> .pt by the "
+          f"convert CLI in {t_cli:.2f} s (a process: start, imports, model build, load, "
+          f"save); convert_state_dict {t_conv:.1f} ms in process (host); paper-eval request "
+          f"{w}x{h} V={v} D={d} bf16 from the .pt: launches knn {nk} masked_window_max {ne}, "
+          f"flow3 finite, depth bit-equal to Predictor(state_dict=convert_state_dict(...))",
+          flush=True)
+
+    # f32 at the parity config: the port from the .pt against the mirror's own forward
+    cfg32 = get_default_cfg()
+    cfg32.DATA.TEST.NUM_VIRTUAL_PLANE = 16
+    kw = dict(img_scales=tuple(cfg32.MODEL.TEST.IMG_SCALES),
+              inter_scales=tuple(cfg32.MODEL.TEST.INTER_SCALES), num_virtual_plane=16)
+    images, cams, _ = make_scene_batch(1, 3, 64, 128, 16)
+    got = Predictor(cfg32, weight_path=pt, device="cuda", normalize=False)(images[0], cams[0])
+    knn_torch = mirror.window_knn_torch
+    try:
+        # the mirror builds its kNN candidate table with numpy: that selection
+        # runs on the host, on the points the card computed
+        mirror.window_knn_torch = lambda pts, *a: knn_torch(pts.cpu(), *a).to(pts.device)
+        with torch.device("cuda"), torch.no_grad():
+            ref = tm.cuda()(torch.tensor(images).permute(0, 1, 4, 2, 3), torch.tensor(cams),
+                            **kw)
+    finally:
+        mirror.window_knn_torch = knn_torch
+    ref = {k: t[0].cpu().numpy() for k, t in ref.items()}
+    report = depth_bars("weights: port vs mirror", got, ref,
+                        ("coarse_depth_map", "flow1", "flow2", "flow3"))
+    moved = [float(np.abs(got[f"flow{i}"] - got[f"flow{i}_input"]).max()) for i in (1, 2, 3)]
+    print(f"weights: f32 64x128 V=3 D=16, the port from the converted .pt against the "
+          f"reference-layout mirror on the card: {report}; the flows move the depth by at "
+          f"most {moved}", flush=True)
+
+    # the orbax checkpoint the JAX package wrote, and its depth
+    fixture = os.path.join(root, "tests", "data", "orbax_tiny")
+    e = np.load(os.path.join(fixture, "expected.npz"))
+    absent = [m for m in ("zstandard", "orbax", "tensorstore", "jax")
+              if importlib.util.find_spec(m) is None]
+    t0 = time.perf_counter()
+    flat = read_orbax(fixture, keys=("params/", "batch_stats/"))
+    t_read = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(a.nbytes for a in flat.values())
+    cfgt = get_default_cfg()
+    cfgt.MODEL.IMG_BASE_CHANNELS, cfgt.MODEL.VOL_BASE_CHANNELS = (int(x) for x in e["widths"])
+    cfgt.MODEL.TEST.IMG_SCALES = tuple(float(x) for x in e["scales"])
+    cfgt.MODEL.TEST.INTER_SCALES = tuple(float(x) for x in e["inter_scales"])
+    v, h, w, d = (int(x) for x in e["shape"])
+    cfgt.DATA.TEST.NUM_VIRTUAL_PLANE = d
+    images, cams, _ = make_scene_batch(1, v, h, w, d, seed=int(e["seed"]))
+    got = Predictor(cfgt, weight_path=fixture, device="cuda", normalize=False)(images[0], cams[0])
+    want = {k: e[k][0] for k in e.files if e[k].ndim == 3}
+    report = depth_bars("weights: orbax fixture", got, want,
+                        sorted(k for k in want if k != "coarse_prob_map"))
+    print(f"weights: orbax checkpoint of the JAX package (tests/data/orbax_tiny, {len(flat)} "
+          f"arrays, {nbytes / 1e3:.1f} kB) read by read_orbax in {t_read:.1f} ms (host; "
+          f"not importable here: {absent}); the port on the card at {w}x{h} V={v} D={d} f32 "
+          f"against the JAX package's depth: {report}; {smi_line()}", flush=True)
+    return nk, ne
 
 
 def fusion_scan_scene():
@@ -1328,15 +1502,15 @@ def profile_call(fn, what: str, top: int = 12):
 
 
 PHASES = ["env", "build", "kernels", "adversarial", "gather", "parity", "serve", "train",
-          "train-parity", "export", "fusion-scan", "train-bf16", "train-dp"]
+          "train-parity", "export", "weights", "fusion-scan", "train-bf16", "train-dp"]
 
 
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
-                   help="comma-separated subset of train,train-bf16,train-dp to try on the "
-                        "card (prints no result lines); default: every phase")
+                   help="comma-separated subset of train,train-bf16,train-dp,weights to try "
+                        "on the card (prints no result lines); default: every phase")
     args = p.parse_args(argv)
     phases = ["env", "build"] + args.phases.split(",") if args.phases else PHASES
     if not torch.cuda.is_available():
@@ -1344,13 +1518,21 @@ def main(argv=None) -> int:
         return 1
     from pointmvsnet_tpu_torch.ops import _cuda
 
+    import warnings
+
+    from pointmvsnet_tpu_torch import disable_tf32
+
     card = smi_line()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    found = tf32_flags()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        disable_tf32()                      # counted, then the flags are put back
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = found
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; {card}; "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; {card}; TF32 flags as "
+          f"found: cudnn.allow_tf32={found[0]} matmul.allow_tf32={found[1]}; "
+          f"disable_tf32 warned {len(caught)} time(s) {[str(w.message)[:80] for w in caught]}",
+          flush=True)
 
     t0 = time.perf_counter()
     _cuda.build()
@@ -1369,6 +1551,12 @@ def main(argv=None) -> int:
                 phase_train_bf16(dev, per_train)
             elif name == "train-dp":
                 phase_train_dp(dev)
+            elif name == "weights":
+                work = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+                try:
+                    phase_weights(work)
+                finally:
+                    shutil.rmtree(work, ignore_errors=True)
             elif name != "train":
                 fail(f"--phases: {name} runs only in a whole run")
         print(f"chip_smoke: partial run of {phases}: every check passed")
@@ -1385,6 +1573,7 @@ def main(argv=None) -> int:
         phase_edge_conv_backward()
         phase_train_parity()
         per_map = phase_export(weight, work)
+        per_weights = phase_weights(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_fusion_scan()
@@ -1409,6 +1598,8 @@ def main(argv=None) -> int:
             "launches_per_train_step": per_train[name][0],
             "launches_per_val_batch": per_train[name][1],
             "launches_per_exported_map": per_map[0 if name == "window_knn" else 1],
+            "launches_per_request_from_converted_weights":
+                per_weights[0 if name == "window_knn" else 1],
             "launches_per_bf16_train_step": per_bf16[name][0],
             "launches_per_bf16_val_batch": per_bf16[name][1],
         })

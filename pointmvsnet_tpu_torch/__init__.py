@@ -11,7 +11,8 @@ no GPU they raise instead of falling back. Under torchrun, ``"cuda"`` is
 the card of the process's ``LOCAL_RANK``. On a CUDA tensor the two
 kernels of the eval path (``ops/knn.py::window_knn_mask`` and
 ``ops/edge.py::masked_window_max``) launch hand-written CUDA C++ from
-``csrc/``; on a CPU tensor they run their plain PyTorch versions.
+``csrc/``; on a CPU tensor they run their plain PyTorch versions. The
+entry points compute float32 in float32 on the card (``disable_tf32``).
 """
 
 from __future__ import annotations
@@ -37,3 +38,13 @@ def resolve_device(device) -> torch.device:
         dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(dev)
     return dev
+
+
+def disable_tf32() -> None:
+    """Float32 convolutions (cuDNN) and matmuls (cuBLAS) in full float32,
+    as the JAX package computes its f32 reference, instead of torch's
+    default, which lets cuDNN use TF32 (10-bit mantissas). Process-wide;
+    the entry points (``Predictor``, ``test.test``, ``train.train``) call
+    it on any device, since the flags only act on CUDA."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,12 +1,16 @@
 """Serving front end: counterpart of ``pointmvsnet_tpu/predictor.py``.
 
-    pred = Predictor(cfg)                    # CUDA; device="cpu" to opt out
+    pred = Predictor(cfg, weight_path="outputs/dtu_wde3/checkpoints")
     out = pred(images, cams)                 # numpy in → numpy out
     out["depth"], out["confidence"]
 
 Same host-side preprocessing as the JAX package (stride-64 center crop,
-per-image standardization). With no ``state_dict`` the weights are drawn
-from ``cfg.RNG_SEED`` (``utils.convert.init_params``).
+per-image standardization). The weights: ``state_dict`` if given, else
+``weight_path``, else the newest checkpoint of ``checkpoint_dir`` (each a
+``.pt`` file, a directory of ``<epoch>.pt`` files or an orbax checkpoint
+of the JAX package; ``utils/checkpoint.py::load_weights``), else drawn
+from ``cfg.RNG_SEED`` (``utils.convert.init_params``). Runs on CUDA unless
+``device="cpu"``, float32 without TF32 (``disable_tf32``).
 """
 
 from __future__ import annotations
@@ -16,22 +20,29 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from pointmvsnet_tpu_torch import disable_tf32
 from pointmvsnet_tpu_torch.dataset.preprocess import crop_mvs_input, norm_image
 from pointmvsnet_tpu_torch.models import build_model
+from pointmvsnet_tpu_torch.utils.checkpoint import load_weights
 from pointmvsnet_tpu_torch.utils.convert import init_params
 
 
 class Predictor:
     def __init__(self, cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 device="cuda", normalize: bool = True):
+                 device="cuda", normalize: bool = True, checkpoint_dir: str = "",
+                 weight_path: str = ""):
         self.cfg = cfg
         self.normalize = normalize
         self.model = build_model(cfg, device)
+        disable_tf32()
         self.device = next(self.model.parameters()).device
-        if state_dict is None:
-            state_dict = init_params(self.model,
-                                     torch.Generator().manual_seed(cfg.RNG_SEED))
-        self.model.load_state_dict(state_dict)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        elif weight_path or checkpoint_dir:
+            load_weights(self.model, weight_path or checkpoint_dir)
+        else:
+            self.model.load_state_dict(
+                init_params(self.model, torch.Generator().manual_seed(cfg.RNG_SEED)))
         self.kwargs = dict(
             is_flow=cfg.MODEL.NAME != "mvsnet",
             img_scales=tuple(cfg.MODEL.TEST.IMG_SCALES),

@@ -2,14 +2,19 @@
 ``pointmvsnet_tpu/test.py``.
 
     python -m pointmvsnet_tpu_torch.test [--cfg configs/dtu_wde3.yaml] \\
-        [--device cuda|cpu] TEST.WEIGHT <ckpt.pt or dir> DATA.TEST.ROOT_DIR ...
+        [--device cuda|cpu] TEST.WEIGHT <ckpt.pt, dir or orbax dir> DATA.TEST.ROOT_DIR ...
 
 No-grad loop over the test split (DTU or Tanks & Temples) at the eval
 settings, per-batch losses and depth metrics where the split has GT
 depth, and the MVSNet-format export that ``fuse.py`` reads
-(``OUTPUT_DIR/depths/scan<n>/``). The weights come from ``TEST.WEIGHT``,
-else from the newest checkpoint under ``OUTPUT_DIR/checkpoints``, else
-from ``cfg.RNG_SEED`` (``utils.convert.init_params``, as ``Predictor``).
+(``OUTPUT_DIR/depths/scan<n>/``). The weights come from ``TEST.WEIGHT``
+(a ``.pt`` file, a directory of ``<epoch>.pt`` files, or an orbax
+checkpoint the JAX package wrote: its manager root, a step or an item
+directory; ``utils/checkpoint.py::load_weights``), else from the newest
+checkpoint under ``OUTPUT_DIR/checkpoints``, else from ``cfg.RNG_SEED``
+(``utils.convert.init_params``, as ``Predictor``); the log names which.
+A reference Point-MVSNet ``.pth`` is converted first
+(``utils/torch_convert.py``).
 Under torchrun (``PARALLEL.DATA`` -1 or the world size) each rank exports
 every W-th item of the split into the same depth directory, with
 ``TEST.BATCH_SIZE`` items per batch, and the summary is over every rank's
@@ -26,11 +31,12 @@ from typing import Optional
 
 import torch
 
-from pointmvsnet_tpu_torch import resolve_device
+from pointmvsnet_tpu_torch import disable_tf32, resolve_device
 from pointmvsnet_tpu_torch.config import get_default_cfg
 from pointmvsnet_tpu_torch.dataset.build import build_data_loader
 from pointmvsnet_tpu_torch.models import build_loss_fn, build_model, pointmvsnet_metrics
 from pointmvsnet_tpu_torch.parallel import TrainState, distributed, make_eval_step, put_batch
+from pointmvsnet_tpu_torch.utils import orbax_reader
 from pointmvsnet_tpu_torch.utils.checkpoint import Checkpointer
 from pointmvsnet_tpu_torch.utils.convert import init_params
 from pointmvsnet_tpu_torch.utils.eval_file_logger import eval_file_logger
@@ -62,6 +68,7 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
                 f"not ported (ROADMAP queue 1); the port splits whole items over the "
                 f"ranks of a torchrun launch (PARALLEL.DATA)")
     dev = resolve_device(device)
+    disable_tf32()
     distributed.init_data_parallel(cfg.PARALLEL.DATA, dev)
     logger = setup_logger("pointmvsnet_tpu_torch.test", output_dir)
     model = build_model(cfg, dev)
@@ -76,7 +83,9 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
     checkpointer = Checkpointer(os.path.join(output_dir, "checkpoints"))
     if cfg.TEST.WEIGHT or checkpointer.latest_epoch() is not None:
         state, _ = checkpointer.load(state, resume=True, path=cfg.TEST.WEIGHT)
-        logger.info("weights: %s", cfg.TEST.WEIGHT or checkpointer.directory)
+        kind = ("an orbax checkpoint of the JAX package"
+                if cfg.TEST.WEIGHT and orbax_reader.is_orbax(cfg.TEST.WEIGHT) else ".pt")
+        logger.info("weights: %s (%s)", cfg.TEST.WEIGHT or checkpointer.directory, kind)
     else:
         model.load_state_dict(init_params(model, torch.Generator().manual_seed(cfg.RNG_SEED)))
         logger.info("weights: none given, drawn from RNG_SEED=%d", cfg.RNG_SEED)

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from pointmvsnet_tpu_torch import resolve_device
+from pointmvsnet_tpu_torch import disable_tf32, resolve_device
 from pointmvsnet_tpu_torch.config import get_default_cfg
 from pointmvsnet_tpu_torch.dataset.build import build_data_loader
 from pointmvsnet_tpu_torch.models import build_loss_fn, build_model, pointmvsnet_metrics
@@ -69,6 +69,7 @@ def train(cfg, output_dir: str, max_steps_per_epoch: Optional[int] = None,
     """Run the epochs from the newest checkpoint (if ``AUTO_RESUME``) to
     ``SCHEDULER.MAX_EPOCH``. → the final TrainState."""
     dev = resolve_device(device)
+    disable_tf32()
     world = distributed.init_data_parallel(cfg.PARALLEL.DATA, dev)
     logger = setup_logger("pointmvsnet_tpu_torch.train", output_dir)
     tb = TensorboardLogger(os.path.join(output_dir, "tb"))

@@ -345,7 +345,10 @@ def cli_exports(train_tree, tmp_path_factory):
     draws them (kernels ×2: the flow head's softmax is not flat). The JAX
     CLI builds the TrainState it restores into with an eager ``model.init``
     (about 80 s on the CPU, then overwritten by the restore); it is handed
-    the TrainState of the checkpoint instead, of the same structure."""
+    the TrainState of the checkpoint instead, of the same structure. The
+    port's CLI runs twice: with the ``.pt``, from a state where TF32 is
+    allowed (the flags it leaves are returned), and with the orbax
+    directory itself as TEST.WEIGHT."""
     import jax.numpy as jnp
     from flax import traverse_util
 
@@ -390,17 +393,24 @@ def cli_exports(train_tree, tmp_path_factory):
         mp.setattr(jtest, "create_train_state", lambda *args, **kwargs: jstate)
         jtest.main(["--cfg", CFG_FILE, "OUTPUT_DIR", str(work / "jax"),
                     "TEST.WEIGHT", str(work / "jax_ckpt")] + opts)
-    summary, depth_dir = test.main(["--cfg", CFG_FILE, "--device", "cpu",
-                                    "OUTPUT_DIR", str(work / "port"), "TEST.WEIGHT", weight]
-                                   + opts)
-    return work / "jax" / "depths", depth_dir, summary
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.backends.cudnn, "allow_tf32", True)
+        mp.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        summary, depth_dir = test.main(["--cfg", CFG_FILE, "--device", "cpu",
+                                        "OUTPUT_DIR", str(work / "port"), "TEST.WEIGHT", weight]
+                                       + opts)
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    _, orbax_dir = test.main(["--cfg", CFG_FILE, "--device", "cpu", "OUTPUT_DIR",
+                              str(work / "port_orbax"), "TEST.WEIGHT", str(work / "jax_ckpt")]
+                             + opts)
+    return work / "jax" / "depths", depth_dir, summary, orbax_dir, tf32
 
 
 def test_cli_export_matches_jax_cli(cli_exports):
     """_init and _prob within rtol 1e-4; _flowN within the bars of
     tests/test_full_parity.py (max |Δ| < 0.05, mean < 0.005); cam .txt
     byte-equal; reference PNGs equal."""
-    jdir, pdir, summary = cli_exports
+    jdir, pdir, summary, _, _ = cli_exports
     jfiles = sorted(os.path.relpath(p, jdir) for p in glob.glob(os.path.join(jdir, "*", "*")))
     assert jfiles == sorted(os.path.relpath(p, pdir) for p in glob.glob(os.path.join(pdir, "*", "*")))
     assert len(jfiles) == V * 6                 # _init, _flow1, _flow2, _prob, .txt, .png
@@ -422,12 +432,39 @@ def test_cli_export_matches_jax_cli(cli_exports):
 def test_cli_flows_move_depth(cli_exports):
     """Guards the flow bars against a flat flow head: each PointFlow
     iteration changes the depth it is given."""
-    _, pdir, _ = cli_exports
+    _, pdir, _, _, _ = cli_exports
     stem = os.path.join(pdir, "scan1", "00000001")
     init, f1, f2 = (io.load_pfm(stem + s) for s in ("_init.pfm", "_flow1.pfm", "_flow2.pfm"))
     assert init.std() > 0.1
     assert np.abs(f1 - resize_image(init, f1.shape)).max() > 1e-3
     assert np.abs(f2 - resize_image(f1, f2.shape)).max() > 1e-3
+
+
+def test_cli_reads_the_jax_orbax_checkpoint(cli_exports):
+    """TEST.WEIGHT at the JAX package's orbax directory exports every file
+    bit-equal to the export from the same weights as a .pt (and so within
+    the bars of the JAX CLI's export above)."""
+    _, pdir, _, odir, _ = cli_exports
+    files = sorted(os.path.relpath(p, pdir) for p in glob.glob(os.path.join(pdir, "*", "*")))
+    assert files and files == sorted(os.path.relpath(p, odir)
+                                     for p in glob.glob(os.path.join(odir, "*", "*")))
+    for rel in files:
+        with open(os.path.join(pdir, rel), "rb") as a, open(os.path.join(odir, rel), "rb") as b:
+            assert a.read() == b.read(), rel
+
+
+def test_entry_points_turn_tf32_off(cli_exports, monkeypatch):
+    """test.test (in cli_exports) and Predictor leave cuDNN's and cuBLAS's
+    TF32 off, from a state that allowed it, on any device."""
+    from pointmvsnet_tpu_torch.predictor import Predictor
+
+    assert cli_exports[4] == (False, False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    cfg = get_default_cfg()
+    cfg.MODEL.IMG_BASE_CHANNELS = cfg.MODEL.VOL_BASE_CHANNELS = 4
+    Predictor(cfg, device="cpu")
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
 
 
 @pytest.mark.parametrize("key", ["PARALLEL.BAND", "PARALLEL.VIEW"])
