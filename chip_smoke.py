@@ -94,13 +94,31 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            step each, against the one-rank step at B=4 on the card, with
            the bars of tests/test_torch_distributed.py (printed). One card
            cannot show NCCL between cards.
+14. parallel-eval  the paper-eval request through Predictor at
+           MODEL.FLOW_CHUNK_ROWS 0, 64 and 128 (row bands of the flow maps
+           with an 8-row halo): kNN / masked-max launches per request
+           (3 / 9, 14 / 42, 7 / 21), latency, peak memory and
+           utils/profiler.py's stage_latencies; every kernel call of a
+           banded request bit-equal to its plain version at its band grid
+           and timed there (CUPTI), beside the plain version and the bound;
+           the banded depth against the unbanded one (max and mean |Δ|
+           within tests/test_full_parity.py's bars, and whether bit-equal).
+           Then two gloo ranks on cuda:0 (spawned, a FileStore; NCCL
+           refuses two ranks on one device): grid (1, 2, 1) at
+           FLOW_CHUNK_ROWS 64, each rank's answer bit-equal to the serial
+           banded request; grid (1, 1, 2) at V=4, within rtol / atol 1e-4
+           of the serial request at V=4 (tests/test_parallel.py's bars).
+           Then the test CLI on a (1, 2, 2) grid of four ranks at 64×128,
+           V=4, D=16, f32, FLOW_CHUNK_ROWS 16: its PFMs within 1e-4 of the
+           one-rank export.
 
 Then a JSON line of per-kernel numbers (``launches`` per serving request;
 per train step and validation batch in f32 and in bf16; per exported
-map; per request from converted weights), the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. ``--phases train,train-bf16,train-dp,
-weights`` (any subset of the four) runs only those, to try them on the
-card, and prints no result lines. Imports nothing of JAX.
+map; per request from converted weights; per banded request), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+``--phases train,train-bf16,train-dp,weights,parallel-eval`` (any subset of
+the five) runs only those, to try them on the card, and prints no result
+lines. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1473,6 +1491,298 @@ def phase_fusion_scan():
           flush=True)
 
 
+# ------------------------------------------------------------ parallel-eval
+
+PE_CHUNKS = (0, 64, 128)          # FLOW_CHUNK_ROWS of the banded serial requests
+PE_BAND_CR = 64                   # the band-parallel request's
+PE_VIEW_V = 4                     # the view-parallel request's view count (2 divides it)
+PE_BARS = {"max": 0.05, "mean": 0.005, "rtol": 1e-4, "atol": 1e-4}
+
+
+def n_bands(h: int, cr: int) -> int:
+    """Bands of a flow map of ``h`` rows at FLOW_CHUNK_ROWS ``cr``."""
+    return 1 if cr <= 0 or h <= cr + 16 else h // cr
+
+
+def pe_cfg(chunk_rows: int):
+    """The paper-eval config in bf16 with a band height."""
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    cfg = get_default_cfg()
+    cfg.MODEL.DTYPE = "bfloat16"
+    cfg.MODEL.FLOW_CHUNK_ROWS = chunk_rows
+    return cfg
+
+
+def cupti_ms(fn, kernel: str, tries: int = 3):
+    """``device_ms``, tried again while the profiler returns no device time
+    for the kernel (late in a run CUPTI sometimes does, and the fallback's
+    CUDA events then time the host's launches of a kernel shorter than
+    them)."""
+    for _ in range(tries):
+        ms, how = device_ms(fn, kernel)
+        if how == "cupti":
+            break
+    return ms, how
+
+
+def time_kernel_calls(calls, shapes: dict) -> dict:
+    """Device time of each kernel at the first recorded call of every
+    shape not yet in ``shapes``, its plain version's time and the bound of
+    the work → ``shapes[(name, grid, F, dtype)] = (ms, plain_ms, bound_ms,
+    bound_by, "cupti" | "events")``. → {name: (ms, plain_ms, bound_ms)
+    summed over ``calls``, and the sources of the kernel times)}."""
+    from pointmvsnet_tpu_torch.ops.edge import masked_window_max_cuda, masked_window_max_plain
+    from pointmvsnet_tpu_torch.ops.knn import window_knn, window_knn_cuda
+
+    totals = {"window_knn": [0.0] * 3, "masked_window_max": [0.0] * 3}
+    sources: dict = {}
+    for attr, args, _, _ in calls:
+        if attr == "window_knn_mask":
+            pts, grid = args[0], args[1]
+            key = ("window_knn", grid, 3, "f32")
+            if key not in shapes:
+                ms, how = cupti_ms(lambda: window_knn_cuda(pts, grid), "window_knn_kernel")
+                pms = time_ms(lambda: window_knn(pts, grid, K, WIN, with_mask=True), reps=2,
+                              warmup=1)
+                shapes[key] = (ms, pms, *bound_ms(*knn_bound(grid[1], grid[2])), how)
+        elif attr == "masked_window_max":
+            z, mask, grid = args[0], args[1], args[2]
+            key = ("masked_window_max", grid, z.shape[2], str(z.dtype)[6:])
+            if key not in shapes:
+                ms, how = cupti_ms(lambda: masked_window_max_cuda(z, mask, grid),
+                                   "masked_window_max_kernel")
+                pms = time_ms(lambda: masked_window_max_plain(z, mask, grid), reps=2, warmup=1)
+                pop = sum(((mask.long() >> s) & 1) for s in range(32)).sum().item()
+                shapes[key] = (ms, pms, *bound_ms(2 * z.numel() * z.element_size()
+                                                   + mask.numel() * 4, pop * z.shape[2]), how)
+        else:
+            continue
+        totals[key[0]] = [t + x for t, x in zip(totals[key[0]], shapes[key][:3])]
+        sources.setdefault(key[0], set()).add(shapes[key][4])
+    return {k: (*t, "+".join(sorted(sources.get(k, ())))) for k, t in totals.items()}
+
+
+def pe_rank(rank: int, world: int, store: str, jobs: list, out: str) -> None:
+    """A rank of the parallel-eval checks: a gloo group over a FileStore,
+    every rank on cuda:0 (NCCL refuses two ranks on one device); each job
+    is a request through ``Predictor(grid=)`` or a run of the test CLI."""
+    import torch.distributed as dist
+
+    from pointmvsnet_tpu_torch import test as test_cli
+    from pointmvsnet_tpu_torch.ops import edge, knn
+    from pointmvsnet_tpu_torch.parallel import distributed
+    from pointmvsnet_tpu_torch.predictor import Predictor
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        results = []
+        for job in jobs:
+            if job["kind"] == "cli":
+                results.append(test_cli.main(job["args"]))
+                continue
+            grid = distributed.make_eval_grid(*job["grid"], device="cuda:0")
+            pred = Predictor(pe_cfg(job["chunk_rows"]), device="cuda:0", grid=grid)
+            pred(job["images"], job["cams"])
+            knn.launches = edge.launches = 0
+            t0 = time.perf_counter()
+            res = pred(job["images"], job["cams"])
+            ms = (time.perf_counter() - t0) * 1e3
+            results.append(dict(preds=res, launches=(knn.launches, edge.launches), ms=ms,
+                                index=grid.index))
+            del pred
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def pe_spawn(jobs: list, world: int, work: str) -> list:
+    import torch.multiprocessing as mp
+    sub = tempfile.mkdtemp(prefix=f"ranks{world}_", dir=work)
+    mp.spawn(pe_rank, args=(world, os.path.join(sub, "store"), jobs, sub), nprocs=world,
+             join=True)
+    return [torch.load(os.path.join(sub, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def phase_parallel_eval(dev) -> dict:
+    """Banded PointFlow and band- and view-parallel eval. (1) The paper-eval
+    request (640x512, V=5, D=96, bf16, BN eval) through Predictor at
+    FLOW_CHUNK_ROWS 0, 64 and 128: launches, latency, peak memory, the
+    per-stage latencies, every kernel call of a banded request bit-equal
+    to its plain version and timed at its band grid, and the banded depth
+    against the unbanded depth (tests/test_full_parity.py's bars). (2) Two
+    ranks on cuda:0 over gloo, grid (1, 2, 1), FLOW_CHUNK_ROWS 64: each
+    rank's answer bit-equal to the serial banded request. (3) Two ranks,
+    grid (1, 1, 2), V=4: within rtol / atol 1e-4 of the serial request at
+    V=4 (tests/test_parallel.py's bars). (4) The test CLI on four ranks,
+    grid (1, 2, 2), 64x128, V=4, D=16, f32, FLOW_CHUNK_ROWS 16: its PFMs
+    within 1e-4 of the one-rank export. A single card cannot show NCCL
+    between cards, nor a speed-up: the ranks share it. → {kernel: launches
+    per banded request (FLOW_CHUNK_ROWS 64)} and the band-grid timings."""
+    import gc
+
+    from pointmvsnet_tpu_torch import test as test_cli
+    from pointmvsnet_tpu_torch.dataset import io
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch, make_synthetic_dtu
+    from pointmvsnet_tpu_torch.ops import edge, knn
+    from pointmvsnet_tpu_torch.predictor import Predictor
+    from pointmvsnet_tpu_torch.utils.profiler import stage_latencies
+
+    cfg0 = pe_cfg(0)
+    h, w = cfg0.DATA.TEST.IMG_HEIGHT, cfg0.DATA.TEST.IMG_WIDTH
+    v, d = cfg0.DATA.TEST.NUM_VIEW, cfg0.DATA.TEST.NUM_VIRTUAL_PLANE
+    scales = tuple(cfg0.MODEL.TEST.IMG_SCALES)
+    images, cams, _ = make_scene_batch(1, v, h, w, d, seed=0)
+    res, shapes = {}, {}
+    for cr in PE_CHUNKS:
+        pred = Predictor(pe_cfg(cr), device="cuda")
+        pred(images[0], cams[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lat = []
+        knn.launches = edge.launches = 0
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = pred(images[0], cams[0])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        nk, ne = knn.launches, edge.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bands = [n_bands(int(h * s), cr) for s in scales]
+        want = (3 * sum(bands), 3 * len(EDGE_F) * sum(bands))
+        check((nk, ne) == want, f"parallel-eval FLOW_CHUNK_ROWS={cr}: {nk} kNN and {ne} "
+                                f"masked-max launches in 3 requests, want {want}")
+        check(all(np.isfinite(a).all() for a in out.values()),
+              f"parallel-eval FLOW_CHUNK_ROWS={cr}: non-finite output")
+        note, totals = "", None
+        if cr:
+            with record_kernel_calls() as calls:
+                again = pred(images[0], cams[0])
+            torch.cuda.synchronize()
+            check(all(same_bits(torch.from_numpy(again[k]), torch.from_numpy(a))
+                      for k, a in out.items()),
+                  f"parallel-eval FLOW_CHUNK_ROWS={cr}: a second request differs")
+            met = check_kernel_calls(calls, f"parallel-eval FLOW_CHUNK_ROWS={cr}")
+            note = f"; kernel calls bit-equal to their plain versions ({met})"
+            totals = time_kernel_calls(calls, shapes)
+            note += "; per request kernel / plain / bound ms " + ", ".join(
+                f"{k} {t[0]:.4f} ({t[3]}) / {t[1]:.1f} / {t[2]:.4f}" for k, t in totals.items())
+        stages = stage_latencies(pred.model, torch.tensor(images, device=dev),
+                                 torch.tensor(cams, device=dev), scales,
+                                 tuple(cfg0.MODEL.TEST.INTER_SCALES), d, iters=3)
+        res[cr] = dict(out=out, lat=lat, peak=peak, launches=(nk // 3, ne // 3), totals=totals)
+        print(f"parallel-eval: FLOW_CHUNK_ROWS={cr} ({'x'.join(map(str, bands))} bands at "
+              f"flow1-3): {w}x{h} V={v} D={d} bf16 latency ms {[round(t, 1) for t in lat]}, "
+              f"max_memory_allocated {peak:.2f} GiB, launches per request kNN {nk // 3} "
+              f"masked_window_max {ne // 3}; stage_latencies ms "
+              f"{ {k: round(1e3 * t, 1) for k, t in stages.items()} }{note}; {smi_line()}",
+              flush=True)
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    for cr in PE_CHUNKS[1:]:
+        rep = []
+        for key in ("coarse_depth_map", "flow1", "flow2", "flow3"):
+            diff = np.abs(res[cr]["out"][key] - res[0]["out"][key])
+            check(diff.max() < PE_BARS["max"] and diff.mean() < PE_BARS["mean"],
+                  f"parallel-eval: FLOW_CHUNK_ROWS={cr} {key} max {diff.max()} "
+                  f"mean {diff.mean()}")
+            rep.append(f"{key} max {diff.max():.3e} mean {diff.mean():.3e} "
+                       f"bit-equal {bool(np.array_equal(res[cr]['out'][key], res[0]['out'][key]))}")
+        print(f"parallel-eval: FLOW_CHUNK_ROWS={cr} against unbanded (bars max 0.05, mean "
+              f"0.005): {'; '.join(rep)}", flush=True)
+    for (name, grid, f, dt), (ms, pms, bb, by, how) in sorted(shapes.items()):
+        print(f"parallel-eval: {name} band grid {grid} F={f} {dt}: kernel {ms:.4f} ms ({how}), "
+              f"plain {pms:.3f} ms, bound {bb:.4f} ms ({by})", flush=True)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_pe_")
+    try:
+        # (2) band-parallel and (3) view-parallel, two ranks sharing the card
+        torch.cuda.empty_cache()
+        img4, cam4, _ = make_scene_batch(1, PE_VIEW_V, h, w, d, seed=0)
+        serial4 = Predictor(pe_cfg(0), device="cuda")(img4[0], cam4[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+        jobs = [dict(kind="predict", grid=(1, 2, 1), chunk_rows=PE_BAND_CR,
+                     images=images[0], cams=cams[0]),
+                dict(kind="predict", grid=(1, 1, 2), chunk_rows=0, images=img4[0],
+                     cams=cam4[0])]
+        t0 = time.perf_counter()
+        ranks = pe_spawn(jobs, 2, work)
+        t_ranks = time.perf_counter() - t0
+        serial = res[PE_BAND_CR]["out"]
+        # rank r refines bands [r·⌈P/2⌉, (r+1)·⌈P/2⌉) of each flow's P, and
+        # every rank a flow too short to band
+        per_rank = [sum(1 if n == 1 else max(0, min(n, (r + 1) * -(-n // 2)) - r * -(-n // 2))
+                        for n in (n_bands(int(h * s), PE_BAND_CR) for s in scales))
+                    for r in range(2)]
+        for r, (band, view) in enumerate(ranks):
+            check(all(same_bits(torch.from_numpy(band["preds"][k]), torch.from_numpy(a))
+                      for k, a in serial.items()),
+                  f"parallel-eval: band rank {r} differs from the serial banded request")
+            check(band["launches"] == (per_rank[r], len(EDGE_F) * per_rank[r]),
+                  f"parallel-eval: band rank {r} launched {band['launches']} kNN / masked-max, "
+                  f"want {per_rank[r]} kNN")
+        rep = []
+        for key in ("coarse_depth_map", "flow3"):
+            for r, (_, view) in enumerate(ranks):
+                ok = np.allclose(view["preds"][key], serial4[key], rtol=PE_BARS["rtol"],
+                                 atol=PE_BARS["atol"])
+                diff = np.abs(view["preds"][key] - serial4[key])
+                check(ok, f"parallel-eval: view rank {r} {key} max |d| {diff.max()}")
+            rep.append(f"{key} max {diff.max():.3e} mean {diff.mean():.3e}")
+        check(np.array_equal(ranks[0][1]["preds"]["flow3"], ranks[1][1]["preds"]["flow3"]),
+              "parallel-eval: the view ranks disagree")
+        print(f"parallel-eval: band-parallel grid (1, 2, 1) FLOW_CHUNK_ROWS={PE_BAND_CR}, two "
+              f"gloo ranks on cuda:0: both ranks bit-equal to the serial banded request; kNN / "
+              f"masked-max launches per rank {[b['launches'] for b, _ in ranks]}; request ms "
+              f"{[round(b['ms'], 1) for b, _ in ranks]}. view-parallel grid (1, 1, 2) V="
+              f"{PE_VIEW_V}: against the serial request (bars rtol 1e-4 atol 1e-4): "
+              f"{'; '.join(rep)}; request ms {[round(x['ms'], 1) for _, x in ranks]}; "
+              f"{t_ranks:.1f} s with the process starts", flush=True)
+
+        # (4) the test CLI on a (1, 2, 2) grid of four ranks
+        tree = os.path.join(work, "dtu")
+        make_synthetic_dtu(tree, scans=[1], num_views=4, height=64, width=128, num_depth=16,
+                           layout="eval")
+        args = ["--device", "cuda:0", "DATA.TEST.ROOT_DIR", tree, "DATA.TEST.NUM_VIEW", "4",
+                "DATA.TEST.NUM_VIRTUAL_PLANE", "16", "DATA.TEST.IMG_HEIGHT", "64",
+                "DATA.TEST.IMG_WIDTH", "128", "DATA.TEST.INTERVAL_SCALE", "1.0",
+                "MODEL.FLOW_CHUNK_ROWS", "16"]
+        one, one_dir = test_cli.main(args + ["OUTPUT_DIR", os.path.join(work, "one")])
+        t0 = time.perf_counter()
+        grid_runs = pe_spawn([dict(kind="cli", args=args + [
+            "PARALLEL.BAND", "2", "PARALLEL.VIEW", "2", "OUTPUT_DIR",
+            os.path.join(work, "grid")])], 4, work)
+        t_cli = time.perf_counter() - t0
+        summaries = [r[0][0] for r in grid_runs]
+        grid_dir = grid_runs[0][0][1]
+        check(one["maps"] == 4 and all(s["maps"] == 4 for s in summaries),
+              f"parallel-eval: maps {one['maps']} / {[s['maps'] for s in summaries]}")
+        names = sorted(os.listdir(os.path.join(one_dir, "scan1")))
+        check(sorted(os.listdir(os.path.join(grid_dir, "scan1"))) == names,
+              "parallel-eval: the grid's export has other files")
+        worst = 0.0
+        for f in names:
+            if f.endswith(".pfm"):
+                a = io.load_pfm(os.path.join(grid_dir, "scan1", f))
+                b = io.load_pfm(os.path.join(one_dir, "scan1", f))
+                check(np.allclose(a, b, rtol=PE_BARS["rtol"], atol=PE_BARS["atol"]),
+                      f"parallel-eval: {f} max |d| {np.abs(a - b).max()}")
+                worst = max(worst, float(np.abs(a - b).max()))
+        print(f"parallel-eval: test CLI on a (1, 2, 2) grid of four gloo ranks on cuda:0, "
+              f"64x128 V=4 D=16 f32 FLOW_CHUNK_ROWS 16: {summaries[0]['maps']} maps, "
+              f"{len(names)} files as the one-rank export, PFMs max |d| {worst:.3e} (bars rtol "
+              f"1e-4 atol 1e-4); {t_cli:.1f} s with the process starts. One card cannot show "
+              f"NCCL between cards.", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    band = res[PE_BAND_CR]
+    return {name: dict(launches=band["launches"][i], ms=band["totals"][name][0],
+                       source=band["totals"][name][3])
+            for i, name in enumerate(("window_knn", "masked_window_max"))}
+
+
 def profile_call(fn, what: str, top: int = 12):
     """One more call of ``fn`` under torch.profiler: device busy time (the
     sum of the GPU kernels and copies), its share of the call's wall time,
@@ -1502,15 +1812,17 @@ def profile_call(fn, what: str, top: int = 12):
 
 
 PHASES = ["env", "build", "kernels", "adversarial", "gather", "parity", "serve", "train",
-          "train-parity", "export", "weights", "fusion-scan", "train-bf16", "train-dp"]
+          "train-parity", "export", "weights", "fusion-scan", "train-bf16", "train-dp",
+          "parallel-eval"]
 
 
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
-                   help="comma-separated subset of train,train-bf16,train-dp,weights to try "
-                        "on the card (prints no result lines); default: every phase")
+                   help="comma-separated subset of train,train-bf16,train-dp,weights,"
+                        "parallel-eval to try on the card (prints no result lines); default: "
+                        "every phase")
     args = p.parse_args(argv)
     phases = ["env", "build"] + args.phases.split(",") if args.phases else PHASES
     if not torch.cuda.is_available():
@@ -1551,6 +1863,8 @@ def main(argv=None) -> int:
                 phase_train_bf16(dev, per_train)
             elif name == "train-dp":
                 phase_train_dp(dev)
+            elif name == "parallel-eval":
+                phase_parallel_eval(dev)
             elif name == "weights":
                 work = tempfile.mkdtemp(prefix="chip_smoke_weights_")
                 try:
@@ -1579,6 +1893,7 @@ def main(argv=None) -> int:
     phase_fusion_scan()
     per_bf16 = phase_train_bf16(dev, per_train)
     phase_train_dp(dev)
+    per_band = phase_parallel_eval(dev)
 
     rows = []
     for name, line, launches in [("window_knn", "knn.py:40", n_knn),
@@ -1602,6 +1917,10 @@ def main(argv=None) -> int:
                 per_weights[0 if name == "window_knn" else 1],
             "launches_per_bf16_train_step": per_bf16[name][0],
             "launches_per_bf16_val_batch": per_bf16[name][1],
+            "launches_per_banded_request": per_band[name]["launches"],
+            "banded_request_flow_chunk_rows": PE_BAND_CR,
+            "ms_per_banded_request": round(per_band[name]["ms"], 5),
+            "ms_per_banded_request_source": per_band[name]["source"],
         })
     rows.append({
         "name": "window_gather", "route": "cuda",

@@ -129,9 +129,11 @@ class RankShard:
         return self.dataset[self.rank + i * self.world]
 
 
-def build_data_loader(cfg, mode: str = "train") -> DataLoader:
+def build_data_loader(cfg, mode: str = "train", shard=None) -> DataLoader:
     """cfg → this rank's loader of the "train", "val" or "test" split
-    (the whole split without a process group)."""
+    (the whole split without a process group). ``shard`` (test split):
+    (index, count) of this rank's share of the items, default (rank,
+    world size); on an eval grid (data index, data size)."""
     from pointmvsnet_tpu_torch.dataset.dtu import DTUTestDataset, DTUTrainValDataset
     from pointmvsnet_tpu_torch.parallel import distributed
 
@@ -150,9 +152,9 @@ def build_data_loader(cfg, mode: str = "train") -> DataLoader:
             ds = DTUTestDataset(t.ROOT_DIR, **kw)
         else:
             raise ValueError(f"DATA.TEST.DATASET={t.DATASET!r}: want 'dtu' or 'tanks'")
-        world = distributed.world_size()
-        if world > 1:
-            ds = RankShard(ds, distributed.rank(), world)
+        index, count = shard or (distributed.rank(), distributed.world_size())
+        if count > 1:
+            ds = RankShard(ds, index, count)
         return DataLoader(ds, cfg.TEST.BATCH_SIZE, shuffle=False, drop_last=False,
                           num_workers=cfg.DATA.NUM_WORKERS)
     split = cfg.DATA.TRAIN if mode == "train" else cfg.DATA.VAL

@@ -3,9 +3,11 @@
 
 ``build_model`` rejects the JAX package's TPU-only knobs when they are set
 away from a value whose meaning the port implements, instead of quietly
-reinterpreting them. Where the JAX package's build functions return the
-triple (model, loss_fn, metric_fn), the port's return the model, and
-``build_loss_fn`` / ``pointmvsnet_metrics`` give the other two.
+reinterpreting them. ``MODEL.FLOW_CHUNK_ROWS`` takes any band height ≥ -1;
+-1, the JAX package's AUTO height for the TPU's VMEM, is unbanded here.
+Where the JAX package's build functions return the triple (model,
+loss_fn, metric_fn), the port's return the model, and ``build_loss_fn`` /
+``pointmvsnet_metrics`` give the other two.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ _ACCEPTED = {
     "FLOW_MOMENTS": ("auto", "on", True),
     "FLOW_SRC_DTYPE": ("",),
     "REMAT": (False,),
-    "FLOW_CHUNK_ROWS": (-1, 0),
 }
 
 
@@ -46,6 +47,10 @@ def check_model_knobs(cfg) -> None:
             raise ValueError(
                 f"MODEL.{key}={val!r} selects a TPU engine of the JAX package; "
                 f"the port implements {ok}")
+    cr = cfg.MODEL.FLOW_CHUNK_ROWS
+    if type(cr) is not int or cr < -1:
+        raise ValueError(f"MODEL.FLOW_CHUNK_ROWS={cr!r}: want a band height, 0 or -1 "
+                         f"(both unbanded)")
 
 
 def register_model(name: str):
@@ -56,7 +61,10 @@ def register_model(name: str):
 
 
 @register_model("pointmvsnet")
-def build_pointmvsnet(cfg) -> PointMVSNet:
+def build_pointmvsnet(cfg, band_group=None, view_group=None) -> PointMVSNet:
+    """``band_group`` / ``view_group``: the process groups that share out
+    one map's flow bands (PARALLEL.BAND) and its cost volume's views
+    (PARALLEL.VIEW), or None."""
     check_model_knobs(cfg)
     return PointMVSNet(
         img_base_channels=cfg.MODEL.IMG_BASE_CHANNELS,
@@ -68,13 +76,16 @@ def build_pointmvsnet(cfg) -> PointMVSNet:
         knn_window=cfg.MODEL.KNN_WINDOW,
         norm=cfg.MODEL.NORM,
         dtype=_DTYPES[cfg.MODEL.DTYPE],
+        flow_chunk_rows=cfg.MODEL.FLOW_CHUNK_ROWS,
+        band_group=band_group,
+        view_group=view_group,
     )
 
 
 @register_model("mvsnet")
-def build_mvsnet(cfg) -> PointMVSNet:
+def build_mvsnet(cfg, band_group=None, view_group=None) -> PointMVSNet:
     """Coarse-only family: the same model, run with ``is_flow=False``."""
-    return build_pointmvsnet(cfg)
+    return build_pointmvsnet(cfg, band_group, view_group)
 
 
 def build_loss_fn(cfg) -> Callable:
@@ -85,15 +96,18 @@ def build_loss_fn(cfg) -> Callable:
         valid_threshold=cfg.MODEL.VALID_THRESHOLD if cfg.MODEL.MASKED_LOSS else 0.0)
 
 
-def build_model(cfg, device="cuda") -> PointMVSNet:
+def build_model(cfg, device="cuda", grid=None) -> PointMVSNet:
     """cfg → the model on ``device`` (CUDA unless the caller asks for the
     CPU; raises without a GPU), in eval mode; the train step switches it to
-    training mode."""
+    training mode. ``grid``: this rank's ``parallel.distributed.EvalGrid``,
+    whose band and view groups the model's eval forward shares its work
+    over (the JAX package's ``band_mesh`` / ``view_mesh``)."""
     dev = resolve_device(device)
     name = cfg.MODEL.NAME
     if name not in MODEL_REGISTRY:
         raise KeyError(f"Unknown MODEL.NAME {name!r}; have {sorted(MODEL_REGISTRY)}")
-    return MODEL_REGISTRY[name](cfg).to(dev).eval()
+    groups = (grid.band_group, grid.view_group) if grid is not None else (None, None)
+    return MODEL_REGISTRY[name](cfg, *groups).to(dev).eval()
 
 
 __all__ = ["PointMVSNet", "PointFlow", "ImageConv", "VolumeConv", "EdgeConv",

@@ -14,7 +14,8 @@ train and validation steps under data parallelism): each masked mean is
 then the local masked sum over the count of the *global* batch, as the
 JAX package's mean over its sharded batch is, so the ranks' values sum to
 the global loss and the sum of their gradients is its gradient. A mean of
-per-rank means would be another loss.
+per-rank means would be another loss. ``group``: the ranks that share the
+global batch (on an eval grid, a data group), default every rank.
 """
 
 from __future__ import annotations
@@ -33,10 +34,11 @@ def _resize_gt(gt: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.interpolate(gt[:, None], (h, w), mode="nearest-exact")[:, 0]
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor, sharded: bool) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, sharded: bool,
+                 group=None) -> torch.Tensor:
     count = mask.sum().to(x.dtype)
     if sharded:
-        count = distributed.all_reduce_sum_(count)
+        count = distributed.all_reduce_sum_(count, group)
     return torch.where(mask, x, 0.0).sum() / count.clamp_min(1.0)
 
 
@@ -49,7 +51,7 @@ def _stages(preds: Dict[str, torch.Tensor]):
 def pointmvsnet_loss(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
                      cams: torch.Tensor,
                      valid_threshold: float = 0.0,
-                     sharded: bool = False) -> Dict[str, torch.Tensor]:
+                     sharded: bool = False, group=None) -> Dict[str, torch.Tensor]:
     """Per-output masked MAE in interval units and ``total_loss``, their
     sum. With ``valid_threshold`` > 0 each flow iteration only counts pixels
     whose GT lies within ``valid_threshold`` intervals of that iteration's
@@ -69,7 +71,7 @@ def pointmvsnet_loss(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
             mask = mask & (reach < valid_threshold)
         err = (pred - g).abs() * inv_int
         name = "coarse_loss" if key == "coarse_depth_map" else f"{key}_loss"
-        losses[name] = _masked_mean(err, mask, sharded)
+        losses[name] = _masked_mean(err, mask, sharded, group)
         total = total + losses[name]
     losses["total_loss"] = total
     return losses
@@ -78,7 +80,7 @@ def pointmvsnet_loss(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
 def pointmvsnet_metrics(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
                         cams: torch.Tensor,
                         thresholds: Sequence[float] = (1.0, 3.0),
-                        sharded: bool = False) -> Dict[str, torch.Tensor]:
+                        sharded: bool = False, group=None) -> Dict[str, torch.Tensor]:
     """``<{t}_pct_{stage}``: fraction of valid pixels whose error is below
     t intervals, stage ``cor`` for the coarse map and ``flowN``."""
     gt = gt_depth[..., 0]
@@ -93,5 +95,5 @@ def pointmvsnet_metrics(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
         stage = "cor" if key == "coarse_depth_map" else key
         for t in thresholds:
             out[f"<{int(t)}_pct_{stage}"] = _masked_mean((err < t * interval).float(), mask,
-                                                            sharded)
+                                                            sharded, group)
     return out

@@ -8,12 +8,17 @@ the input. Each flow iteration at ``img_scales[i]`` upsamples the previous
 depth and refines it by the expected residual over 2m+1 hypotheses per
 pixel, ``inter_scales[i]`` depth intervals apart along the viewing ray.
 
-PointFlow runs unbanded: the JAX package's row bands fit the TPU's VMEM,
-while the full-resolution map fits the card whole. ``model.train()``
-selects the training forward of the JAX package's ``train=True``: batch
-statistics in every BatchNorm, the kNN indices alone and EdgeConv's gather
-path (the masked-max fast path is eval only), the image pyramid run anew
-for every flow iteration, and no gradient into the kNN or ``flowN_input``.
+At eval, ``flow_chunk_rows`` > 0 refines each flow map in row bands of
+that height with an 8-row halo (``banded_point_flow``, the counterpart of
+the JAX package's ``PointFlow``), and a band group shares the bands of one
+map out over its ranks; a view group shares out the cost volume's views
+(``parallel/view_parallel.py``). ``flow_chunk_rows`` -1 (the JAX package's
+AUTO height, chosen for the TPU's VMEM) and 0 are unbanded.
+``model.train()`` selects the training forward of the JAX package's
+``train=True``: batch statistics in every BatchNorm, the kNN indices alone
+and EdgeConv's gather path (the masked-max fast path is eval only), the
+image pyramid run anew for every flow iteration, no gradient into the kNN
+or ``flowN_input``, and no bands.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -47,6 +53,10 @@ from pointmvsnet_tpu_torch.ops.sampling import (
     regular_grid_sample,
     resize_bilinear,
 )
+from pointmvsnet_tpu_torch.parallel import distributed
+from pointmvsnet_tpu_torch.parallel.view_parallel import view_sharded_plane_sweep
+
+HALO = 8     # rows above and below a flow band: ≥ the ±6-row reach of three EdgeConvs
 
 
 def scale_cams(cams: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
@@ -70,15 +80,18 @@ def _resize_views(images: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 def hypothesis_points(cur_depth: torch.Tensor, step: torch.Tensor, m: int,
-                      ref_cam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cur_depth (B, h, w) → (pts (B, G·N, 3) g-major, hyp_depth (B, G, N)),
-    G = 2m+1 hypotheses ``step`` apart along the reference viewing ray."""
+                      ref_cam: torch.Tensor,
+                      y_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cur_depth (B, h, w), rows [y_offset, y_offset + h) of a depth map →
+    (pts (B, G·N, 3) g-major, hyp_depth (B, G, N)), G = 2m+1 hypotheses
+    ``step`` apart along the reference viewing ray."""
     b, h, w = cur_depth.shape
     g = 2 * m + 1
     n = h * w
     offsets = torch.arange(g, dtype=cur_depth.dtype, device=cur_depth.device) - m
     hyp_depth = cur_depth.reshape(b, 1, n) + offsets[None, :, None] * step[:, None, None]
     pix = pixel_grid(h, w, device=cur_depth.device)
+    pix = pix + torch.tensor([0.0, y_offset, 0.0], device=pix.device)
     pts = unproject_pixels(pix[None, None], hyp_depth,
                            cam_extrinsics(ref_cam)[:, None],
                            cam_intrinsics(ref_cam)[:, None])      # (B, G, N, 3)
@@ -86,11 +99,11 @@ def hypothesis_points(cur_depth: torch.Tensor, step: torch.Tensor, m: int,
 
 
 class PointFlow(nn.Module):
-    """One PointFlow refinement over the whole depth map (the JAX package's
-    ``PointFlowCore``, run unbanded): hypothesis points → multi-view
+    """One PointFlow refinement of a depth map or of a row band of one (the
+    JAX package's ``PointFlowCore``): hypothesis points → multi-view
     variance features → windowed kNN → EdgeConvs → per-hypothesis
     probabilities → expected residual. Weights are shared across the flow
-    iterations."""
+    iterations and the bands."""
 
     def __init__(self, in_channels: int, edge_channels: Sequence[int] = (32, 32, 64),
                  flow_channels: Sequence[int] = (64, 64, 16, 1), m: int = 2,
@@ -107,16 +120,18 @@ class PointFlow(nn.Module):
 
     def forward(self, levels: List[torch.Tensor], cams_levels: List[torch.Tensor],
                 ref_cam: torch.Tensor, cur_depth: torch.Tensor,
-                step: torch.Tensor) -> torch.Tensor:
+                step: torch.Tensor, y_offset: int = 0, full_h: int = 0) -> torch.Tensor:
         """levels [(B, V, h_l, w_l, C_l)] channels-last; cams_levels
         [(B, V, 2, 4, 4)] at each level's resolution; ref_cam (B, 2, 4, 4)
-        at the flow resolution; cur_depth (B, h, w); step (B,) → refined
-        depth (B, h, w)."""
+        at the flow resolution; cur_depth (B, h, w), rows [y_offset,
+        y_offset + h) of the flow map of height ``full_h`` (default h);
+        step (B,) → refined depth (B, h, w)."""
         b, h, w = cur_depth.shape
         g = 2 * self.m + 1
         n = h * w
+        full_h = full_h or h
         offsets = torch.arange(g, dtype=cur_depth.dtype, device=cur_depth.device) - self.m
-        x, hyp_depth = hypothesis_points(cur_depth, step, self.m, ref_cam)
+        x, hyp_depth = hypothesis_points(cur_depth, step, self.m, ref_cam, y_offset)
 
         # the reference view projects every hypothesis back onto its scaled
         # pixel grid: one regular-grid resample shared by the G hypotheses
@@ -127,7 +142,7 @@ class PointFlow(nn.Module):
         ref_parts = []
         for fmap in levels:
             rh, rw = fmap.shape[2], fmap.shape[3]
-            ref_s = regular_grid_sample(fmap[:, 0], rw / w, rh / h, h, w)
+            ref_s = regular_grid_sample(fmap[:, 0], rw / w, rh / full_h, h, w, y_offset)
             ref_parts.append(torch.where(ref_valid, ref_s[:, None], 0.0)
                              .reshape(b, g * n, -1))
         ref_all = torch.cat(ref_parts, dim=-1)                  # (B, G·N, ΣC)
@@ -153,6 +168,52 @@ class PointFlow(nn.Module):
         return cur_depth + residual.reshape(b, h, w)
 
 
+def banded_point_flow(flow: PointFlow, levels: List[torch.Tensor],
+                      cams_levels: List[torch.Tensor], ref_cam: torch.Tensor,
+                      cur_depth: torch.Tensor, step: torch.Tensor, chunk_rows: int,
+                      band_group=None) -> torch.Tensor:
+    """``flow`` over ``cur_depth`` (B, h, w) in row bands of ``chunk_rows``
+    rows at eval (the JAX package's ``PointFlow.__call__``): each band is
+    refined with HALO rows above and below, clamped into the map so that
+    every band has the same height cr + 2·HALO, and its own cr rows are
+    kept. The halo covers the reach of the three EdgeConvs and the kNN
+    window, so under eval BatchNorm the result equals the unbanded pass;
+    GroupNorm's statistics over a band's points move it (~1e-2).
+    Unbanded in training, for ``chunk_rows`` ≤ 0, or where the map is too
+    short to band (h ≤ cr + 2·HALO).
+
+    ``band_group``: rank r of the group's n ranks refines bands
+    [r·⌈P/n⌉, (r+1)·⌈P/n⌉) of the P bands (what the JAX package's band
+    sharding gives each device, padded where n does not divide P), and
+    the kept rows of all ranks are gathered in band order."""
+    b, h, w = cur_depth.shape
+    cr = chunk_rows
+    if flow.training or cr <= 0 or h <= cr + 2 * HALO:
+        return flow(levels, cams_levels, ref_cam, cur_depth, step)
+    if h % cr or cr % 8:
+        raise ValueError(f"FLOW_CHUNK_ROWS={cr} must divide the flow height {h} and be a "
+                         f"multiple of 8")
+    bs = cr + 2 * HALO
+    y0s = list(range(0, h, cr))
+    bands = range(len(y0s))
+    if band_group is not None:
+        per = -(-len(y0s) // dist.get_world_size(band_group))
+        first = dist.get_rank(band_group) * per
+        bands = range(min(first, len(y0s)), min(first + per, len(y0s)))
+    outs = []
+    for i in bands:
+        lo = min(max(0, y0s[i] - HALO), h - bs)
+        band = flow(levels, cams_levels, ref_cam, cur_depth[:, lo:lo + bs], step, lo, h)
+        outs.append(band[:, y0s[i] - lo:y0s[i] - lo + cr])
+    if band_group is None:
+        return torch.cat(outs, dim=1)
+    mine = torch.zeros(per, b, cr, w, dtype=cur_depth.dtype, device=cur_depth.device)
+    for j, out in enumerate(outs):
+        mine[j] = out
+    every = distributed.all_gather_cat(mine, band_group)[:len(y0s)]   # (P, B, cr, w)
+    return every.permute(1, 0, 2, 3).reshape(b, h, w)
+
+
 class PointMVSNet(nn.Module):
     """The full model. ``forward`` takes images (B, V, H, W, 3)
     normalized and cams (B, V, 2, 4, 4) at image resolution, view 0 the
@@ -163,7 +224,11 @@ class PointMVSNet(nn.Module):
                  flow_channels: Sequence[int] = (64, 64, 16, 1),
                  flow_m: int = 2, knn: int = 16, knn_window: int = 5,
                  norm: str = "bn", coarse_img_scale: float = 0.5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, flow_chunk_rows: int = 0,
+                 band_group=None, view_group=None):
+        """``band_group`` / ``view_group``: process groups (``EvalGrid``)
+        that share out the flow bands of one map and the cost volume's
+        views, or None."""
         super().__init__()
         c = img_base_channels
         self.img_conv = ImageConv(c, norm, dtype)
@@ -172,6 +237,8 @@ class PointMVSNet(nn.Module):
                                     knn, knn_window, norm, dtype)
         self.coarse_img_scale = coarse_img_scale
         self.dtype = dtype
+        self.flow_chunk_rows = flow_chunk_rows
+        self.band_group, self.view_group = band_group, view_group
 
     def _pyramid(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The shared 2-D CNN over all views folded into the batch."""
@@ -207,7 +274,11 @@ class PointMVSNet(nn.Module):
         cams_feat = scale_cams(cams, fw / width, fh / height)
         d_min, d_int, _, _ = cam_depth_range(cams[:, 0])
         depths = depth_hypotheses(d_min, d_int, num_virtual_plane)
-        cost = plane_sweep_volume(feats, cams_feat, depths)
+        if self.view_group is not None:
+            cost = view_sharded_plane_sweep(feats, cams_feat, cams_feat[:, 0], depths,
+                                            self.view_group)
+        else:
+            cost = plane_sweep_volume(feats, cams_feat, depths)
         logits = self.vol_conv(cost)[..., 0]                     # (B, D, fh, fw)
         prob = torch.softmax(logits.float(), dim=1)
         cur = depth_regression(prob, depths)
@@ -231,6 +302,7 @@ class PointMVSNet(nn.Module):
             ref_cam = scale_cams(cams[:, 0], tw / width, th / height)
             cur = resize_bilinear(cur, th, tw)
             preds[f"flow{it + 1}_input"] = cur.detach()
-            cur = self.point_flow(levels, cams_levels, ref_cam, cur, d_int * inter_s)
+            cur = banded_point_flow(self.point_flow, levels, cams_levels, ref_cam, cur,
+                                    d_int * inter_s, self.flow_chunk_rows, self.band_group)
             preds[f"flow{it + 1}"] = cur
         return preds

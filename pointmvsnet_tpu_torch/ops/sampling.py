@@ -59,15 +59,16 @@ def bilinear_sample(feat: torch.Tensor, uv: torch.Tensor,
 
 
 def regular_grid_sample(feat: torch.Tensor, sx: float, sy: float,
-                        out_h: int, out_w: int) -> torch.Tensor:
+                        out_h: int, out_w: int, y_offset: int = 0) -> torch.Tensor:
     """Bilinear-sample ``feat`` (B, H, W, C) at the regular grid u = j·sx,
-    v = i·sy (the reference view's fetch, where every hypothesis depth
-    projects back onto the scaled pixel grid), as two interpolation
+    v = (y_offset + i)·sy (the reference view's fetch, where every
+    hypothesis depth projects back onto the scaled pixel grid; a row band
+    of the flow map starts at row ``y_offset``), as two interpolation
     matmuls. → (B, out_h·out_w, C) float32."""
     b, h, w, c = feat.shape
 
-    def interp_matrix(n_out, scale, n_in):
-        t = torch.arange(n_out, dtype=torch.float32, device=feat.device) * scale
+    def interp_matrix(n_out, scale, n_in, offset=0):
+        t = (torch.arange(n_out, dtype=torch.float32, device=feat.device) + offset) * scale
         t0 = torch.floor(t)
         dt = (t - t0)[:, None]
         i0 = t0.long()[:, None]
@@ -77,7 +78,7 @@ def regular_grid_sample(feat: torch.Tensor, sx: float, sy: float,
                               dt, 0.0))                      # (n_out, n_in)
 
     mx = interp_matrix(out_w, sx, w)
-    my = interp_matrix(out_h, sy, h)
+    my = interp_matrix(out_h, sy, h, y_offset)
     y = torch.einsum("bhwc,ow->bhoc", feat.float(), mx)
     y = torch.einsum("bhoc,ph->bpoc", y, my)
     return y.reshape(b, out_h * out_w, c)

@@ -46,12 +46,14 @@ def put_batch(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
             for k in BATCH_KEYS if k in batch}
 
 
-def _global(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Detached per-rank parts → their sums over the ranks, one all-reduce."""
+def _global(values: Dict[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
+    """Detached per-rank parts → their sums over the ranks of ``group``
+    (default: all), one all-reduce."""
     if not values:
         return {}
     keys = sorted(values)
-    flat = distributed.all_reduce_sum_(torch.stack([values[k].detach().float() for k in keys]))
+    flat = distributed.all_reduce_sum_(torch.stack([values[k].detach().float() for k in keys]),
+                                       group)
     return dict(zip(keys, flat.unbind()))
 
 
@@ -98,14 +100,19 @@ def make_train_step(loss_fn: Callable, model_kwargs: Dict[str, Any]) -> Callable
 
 
 def make_eval_step(loss_fn: Optional[Callable], metric_fn: Optional[Callable],
-                   model_kwargs: Dict[str, Any], sharded: bool = True) -> Callable:
+                   model_kwargs: Dict[str, Any], sharded: bool = True,
+                   grid: Optional[distributed.EvalGrid] = None) -> Callable:
     """→ ``eval_step(state, batch) -> (preds, losses, metrics)``: the eval
     forward (running BatchNorm statistics, the masked-max fast path) with
     no gradient; losses and metrics are empty without ``gt_depth``.
     ``sharded``: the batch is this rank's rows of a global batch that every
     rank evaluates together (validation), and the losses and metrics come
     back as the global batch's; else they are this batch's own (the test
-    CLI, where each rank exports its own items)."""
+    CLI, where each rank exports its own items). On an eval ``grid`` the
+    global batch is sharded over the data axis only: the ranks of one band
+    and view group hold the same rows, and the sums run over the data
+    group."""
+    group = grid.data_group if grid is not None else None
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model
@@ -113,12 +120,13 @@ def make_eval_step(loss_fn: Optional[Callable], metric_fn: Optional[Callable],
         with torch.inference_mode():
             preds = model(batch["images"], batch["cams"], **model_kwargs)
             has_gt = "gt_depth" in batch
-            losses = (loss_fn(preds, batch["gt_depth"], batch["cams"], sharded=sharded)
+            kw = dict(sharded=sharded, group=group)
+            losses = (loss_fn(preds, batch["gt_depth"], batch["cams"], **kw)
                       if loss_fn is not None and has_gt else {})
-            metrics = (metric_fn(preds, batch["gt_depth"], batch["cams"], sharded=sharded)
+            metrics = (metric_fn(preds, batch["gt_depth"], batch["cams"], **kw)
                        if metric_fn is not None and has_gt else {})
             if sharded:
-                losses, metrics = _global(losses), _global(metrics)
+                losses, metrics = _global(losses, group), _global(metrics, group)
         return preds, losses, metrics
 
     return step

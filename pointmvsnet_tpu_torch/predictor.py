@@ -10,7 +10,10 @@ per-image standardization). The weights: ``state_dict`` if given, else
 ``.pt`` file, a directory of ``<epoch>.pt`` files or an orbax checkpoint
 of the JAX package; ``utils/checkpoint.py::load_weights``), else drawn
 from ``cfg.RNG_SEED`` (``utils.convert.init_params``). Runs on CUDA unless
-``device="cpu"``, float32 without TF32 (``disable_tf32``).
+``device="cpu"``, float32 without TF32 (``disable_tf32``). ``grid``: an
+eval grid (``parallel.distributed.make_eval_grid``) whose band and view
+groups share out each prediction; every rank of the group calls the
+predictor with the same request and gets the same answer.
 """
 
 from __future__ import annotations
@@ -30,10 +33,10 @@ from pointmvsnet_tpu_torch.utils.convert import init_params
 class Predictor:
     def __init__(self, cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  device="cuda", normalize: bool = True, checkpoint_dir: str = "",
-                 weight_path: str = ""):
+                 weight_path: str = "", grid=None):
         self.cfg = cfg
         self.normalize = normalize
-        self.model = build_model(cfg, device)
+        self.model = build_model(cfg, device, grid)
         disable_tf32()
         self.device = next(self.model.parameters()).device
         if state_dict is not None:

@@ -15,11 +15,17 @@ checkpoint under ``OUTPUT_DIR/checkpoints``, else from ``cfg.RNG_SEED``
 (``utils.convert.init_params``, as ``Predictor``); the log names which.
 A reference Point-MVSNet ``.pth`` is converted first
 (``utils/torch_convert.py``).
-Under torchrun (``PARALLEL.DATA`` -1 or the world size) each rank exports
-every W-th item of the split into the same depth directory, with
-``TEST.BATCH_SIZE`` items per batch, and the summary is over every rank's
-batches. Band- and view-parallel eval (``PARALLEL.BAND`` / ``VIEW`` > 1)
-are not ported (ROADMAP queue 1).
+Under torchrun the ranks form a ``PARALLEL.DATA × BAND × VIEW`` grid
+(``parallel/distributed.py::make_eval_grid``; DATA -1 is the world size
+over BAND·VIEW): the ranks of one band and view group share the flow
+bands (``MODEL.FLOW_CHUNK_ROWS`` > 0) and the cost volume's views of each
+map, the D data groups each take every D-th item of the split, with
+``TEST.BATCH_SIZE`` items per batch, and the (band 0, view 0) rank of
+each writes its maps into the one depth directory. The summary is over
+those ranks' batches, per map.
+
+    torchrun --nproc_per_node=4 -m pointmvsnet_tpu_torch.test PARALLEL.BAND 2 \
+        PARALLEL.VIEW 2 MODEL.FLOW_CHUNK_ROWS 64 ...
 """
 
 from __future__ import annotations
@@ -61,18 +67,13 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
     ``maps_per_s_after_first`` (the same without the first batch, which
     also pays the first decode of its views and the kernels' warm-up;
     NaN for a loop of one batch)."""
-    for key in ("BAND", "VIEW"):
-        if cfg.PARALLEL[key] > 1:
-            raise NotImplementedError(
-                f"PARALLEL.{key}={cfg.PARALLEL[key]}: band- and view-parallel eval are "
-                f"not ported (ROADMAP queue 1); the port splits whole items over the "
-                f"ranks of a torchrun launch (PARALLEL.DATA)")
     dev = resolve_device(device)
     disable_tf32()
-    distributed.init_data_parallel(cfg.PARALLEL.DATA, dev)
+    grid = distributed.make_eval_grid(cfg.PARALLEL.DATA, cfg.PARALLEL.BAND,
+                                      cfg.PARALLEL.VIEW, dev)
     logger = setup_logger("pointmvsnet_tpu_torch.test", output_dir)
-    model = build_model(cfg, dev)
-    loader = build_data_loader(cfg, "test")
+    model = build_model(cfg, dev, grid)
+    loader = build_data_loader(cfg, "test", shard=(grid.index[0], grid.data))
     kwargs = dict(
         is_flow=cfg.MODEL.NAME != "mvsnet",
         img_scales=tuple(cfg.MODEL.TEST.IMG_SCALES),
@@ -101,18 +102,19 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
         if max_batches and it >= max_batches:
             break
         preds, losses, metrics = eval_step(state, put_batch(batch, dev))
-        preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
-        for b in range(batch["images"].shape[0]):
-            eval_file_logger(batch, preds, depth_dir, batch_index=b)
-            n_maps += 1
-        meters.update(**{k: float(v) for k, v in losses.items()},
-                      **{k: float(v) for k, v in metrics.items()})
+        if grid.lead:            # the other ranks of its band and view group hold the same
+            preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
+            for b in range(batch["images"].shape[0]):
+                eval_file_logger(batch, preds, depth_dir, batch_index=b)
+                n_maps += 1
+            meters.update(**{k: float(v) for k, v in losses.items()},
+                          **{k: float(v) for k, v in metrics.items()})
         if it == 0:
             n_first, t_first = n_maps, time.time()
         if it % cfg.TEST.LOG_PERIOD == 0:
             logger.info("test iter %d/%d  %s", it, len(loader), meters)
     t_end = time.time()
-    # every rank's maps over the slowest rank's time
+    # every lead rank's maps over the slowest rank's time
     counts = distributed.all_gather_object((n_maps, n_first, t_end - t_start, t_end - t_first))
     n_maps, n_first = sum(c[0] for c in counts), sum(c[1] for c in counts)
     elapsed, after = max(c[2] for c in counts), max(c[3] for c in counts)
@@ -138,7 +140,8 @@ def main(argv=None):
         stem = os.path.splitext(os.path.basename(args.cfg))[0] if args.cfg else "default"
         output_dir = os.path.join("outputs", stem)
     os.makedirs(output_dir, exist_ok=True)
-    distributed.init_data_parallel(cfg.PARALLEL.DATA, resolve_device(args.device))
+    distributed.init_data_parallel(cfg.PARALLEL.DATA, resolve_device(args.device),
+                                   max(1, cfg.PARALLEL.BAND), max(1, cfg.PARALLEL.VIEW))
     logger = setup_logger("pointmvsnet_tpu_torch", output_dir)
     logger.info("config %s, overrides %s, device %s", args.cfg or "(defaults)", args.opts,
                 args.device)

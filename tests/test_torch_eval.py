@@ -469,8 +469,11 @@ def test_entry_points_turn_tf32_off(cli_exports, monkeypatch):
 
 @pytest.mark.parametrize("key", ["PARALLEL.BAND", "PARALLEL.VIEW"])
 def test_cli_refuses_parallel_eval(train_tree, tmp_path, key):
+    """Band- and view-parallel eval need a launch of BAND·VIEW ranks or a
+    multiple (tests/test_torch_parallel_eval.py runs them); one process
+    with a band or view axis of 2 is refused."""
     from pointmvsnet_tpu_torch import test
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a multiple of 2 processes"):
         test.main(["--device", "cpu", "OUTPUT_DIR", str(tmp_path), key, "2",
                    "DATA.TEST.ROOT_DIR", train_tree] + TEST_OPTS)
 

@@ -100,13 +100,29 @@ def test_volume_conv(norm):
 @pytest.mark.parametrize("key,value", [
     ("KNN_IMPL", "pallas"), ("KNN_IMPL", "xla"), ("FLOW_FETCH", "table"),
     ("COARSE_FETCH", "take"), ("FLOW_MOMENTS", "False"), ("FLOW_MOMENTS", "off"),
-    ("FLOW_MOMENTS", False), ("FLOW_SRC_DTYPE", "bfloat16"), ("REMAT", True),
-    ("FLOW_CHUNK_ROWS", 64)])
+    ("FLOW_MOMENTS", False), ("FLOW_SRC_DTYPE", "bfloat16"), ("REMAT", True)])
 def test_build_model_rejects_tpu_knobs(key, value):
     cfg = get_default_cfg()
     cfg.MODEL[key] = value
     with pytest.raises(ValueError):
         build_model(cfg, device="cpu")
+
+
+def test_flow_chunk_rows_rejected_where_the_jax_package_asserts():
+    """FLOW_CHUNK_ROWS 12 bands a 64-row flow (64 > 12 + 16) but is no
+    multiple of 8 and does not divide 64: the JAX package's PointFlow
+    asserts while it traces, the port's raises ValueError."""
+    images, cams, _ = make_scene_batch(1, 2, 64, 64, 8, seed=1)
+    kw = dict(is_flow=True, img_scales=(1.0,), inter_scales=(0.75,), num_virtual_plane=8)
+    jm = JPointMVSNet(norm="bn", flow_chunk_rows=12)
+    with pytest.raises(AssertionError, match="FLOW_CHUNK_ROWS=12"):
+        jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(images),
+                                       jnp.asarray(cams), **kw))
+    cfg = get_default_cfg()
+    cfg.MODEL.FLOW_CHUNK_ROWS = 12
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="FLOW_CHUNK_ROWS=12"), torch.inference_mode():
+        model(torch.from_numpy(images), torch.from_numpy(cams), **kw)
 
 
 def test_build_model_defaults():
