@@ -11,7 +11,18 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            ``Predictor``, ``train()`` and ``test.test``, each entered with
            TF32 allowed), so every f32 gate holds for what users get.
 2. build   nvcc builds the three kernels from csrc/, in parallel.
-3. kernels each CUDA kernel of the model against its plain PyTorch version
+3. dataplane  the C++ host data plane (native/src/dataplane.cpp): g++'s
+           version, flags and build time; the C path bit-equal to the Python
+           readers on this host (its numpy may differ) on the reference
+           train tree at 640×512 (cams, depth PFMs), on 3-channel and scaled
+           PFMs and on 2000 seeded cam files under 3 interval scales and 5
+           counts; host times (mean) of load_pfm and load_cam on both paths
+           beside the bytes' read, of load_pfm_batch (49 maps, 1 thread and
+           all) and of the DTU train loader (configs/dtu_wde3.yaml) in
+           items/s at NUM_WORKERS 1 and 4, C path and PMVS_NO_NATIVE=1. The
+           train and export phases check ``native.loads``: the C path read
+           their PFMs and cams.
+4. kernels each CUDA kernel of the model against its plain PyTorch version
            on the card, at every shape the paper-eval forward gives it:
            windowed kNN (idx and mask bit-equal) and masked window max
            (bit-equal, bf16 and f32); the kernel's device time
@@ -25,20 +36,20 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            f32, at widths that take its vector and its scalar path; each
            against the plain version on the card and (on the small grids)
            on the CPU, NaN positions first, then the bits of the rest.
-4. gather  the probe's windowed row gather (csrc/window_gather.cu) against
+5. gather  the probe's windowed row gather (csrc/window_gather.cu) against
            its plain version, bit-equal, at the probe's default shape and
            at one whose rows fill the upper slab and the padded last
            window; kernel, plain, torch.index_select and bound times; then
            the probe's own entry point.
-5. parity  the port at 64×128, V=3, D=16, f32, through Predictor: card
+6. parity  the port at 64×128, V=3, D=16, f32, through Predictor: card
            (kernels) against the CPU (plain versions), same seeded
            weights; depth bars of tests/test_full_parity.py.
-6. serve   Predictor at the paper-eval config (640×512, V=5, D=96, bf16,
+7. serve   Predictor at the paper-eval config (640×512, V=5, D=96, bf16,
            BatchNorm eval, 3 PointFlow iterations) answers 3 requests on a
            synthetic scene; each must launch exactly 3 kNN and 9 masked-max
            kernels and return finite maps; one more request runs under
            the profiler (device busy share, top kernels).
-7. train   train() at the reference training config (640×512, V=3, D=48,
+8. train   train() at the reference training config (640×512, V=3, D=48,
            B=4, BatchNorm, f32, flows at 0.25 / 0.5) on a synthetic DTU
            tree written by the port: 2 coarse-only and 2 flow steps with
            validation, a checkpoint, and a resume to 6 steps; kernel
@@ -46,13 +57,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            of one validation batch (B=4) bit-equal to its plain version on
            the same inputs; steady step time, peak memory and the
            device-busy share of one profiled step.
-8. train-parity  EdgeConv's train-mode backward on a fixed kNN graph,
+9. train-parity  EdgeConv's train-mode backward on a fixed kNN graph,
            card against CPU; then one train step at 64×128, V=3, D=16, B=2,
            f32, seeded weights and noisy images, coarse-only and with both
            flows, the kNN fed the same points on both sides: card against CPU,
            losses, every gradient and the BN running statistics, with the
            bars set out in phase_train_parity.
-9. export  the eval pipeline: a DTU eval-release tree of 800×640 JPEGs
+10. export  the eval pipeline: a DTU eval-release tree of 800×640 JPEGs
            (scan 1, 5 views, D=96) written by the port's JPEG writer; the
            test CLI (configs/dtu_wde3.yaml, bf16, TEST.WEIGHT = the train
            phase's last checkpoint) decodes, scales by 0.8 to 640×512 and
@@ -61,7 +72,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            item; the fuse CLI with the torch backend on the card, with
            numpy and with torch on the CPU, each pair held to the JAX
            package's bar between its backends (equal counts, 1e-3).
-10. weights  the weights the JAX package loads. A reference-layout .pth
+11. weights  the weights the JAX package loads. A reference-layout .pth
            (tests/torch_mirror.py's TorchPointMVSNet at full width, BN
            statistics not an identity, a ``module.`` prefix) converted by
            the convert CLI in a subprocess and read by
@@ -75,26 +86,26 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            utils/orbax_reader.py on this host, the port on the card against
            the JAX package's depth beside it (expected.npz), the same bars.
            Conversion and read times, host clock.
-11. fusion-scan  both fusion backends on 49 noisy true depth maps of
+12. fusion-scan  both fusion backends on 49 noisy true depth maps of
            640×512 (a DTU eval scan's view count) at the fuse CLI's
            defaults: times, the card's peak memory, each cloud's accuracy
            / completeness against the scene; the card held to torch on the
            CPU on 9 of the maps (bars in phase_fusion_scan).
-12. train-bf16  the train phase with MODEL.DTYPE bfloat16: step counter,
+13. train-bf16  the train phase with MODEL.DTYPE bfloat16: step counter,
            checkpoints and resume, 0 skipped steps, finite parameters, 2
            kNN and 0 masked-max launches per flow step, 2 kNN and 6
            masked-max (bf16; 4 at F=32, 2 at F=64) per validation batch,
            the validation batch's kernel calls bit-equal to their plain
            versions, step time and peak memory beside the f32 phase's, a
            profiled step; then one B=2 BatchNorm bf16 flow step, finite.
-13. train-dp  train() inside a one-rank NCCL group bit-equal to train()
+14. train-dp  train() inside a one-rank NCCL group bit-equal to train()
            without a group (2 + 2 steps, deterministic algorithms, in a
            process of its own); then two ranks on cuda:0 over gloo at
            64×128, global B=4, BN, f32 and bf16, a coarse-only and a flow
            step each, against the one-rank step at B=4 on the card, with
            the bars of tests/test_torch_distributed.py (printed). One card
            cannot show NCCL between cards.
-14. parallel-eval  the paper-eval request through Predictor at
+15. parallel-eval  the paper-eval request through Predictor at
            MODEL.FLOW_CHUNK_ROWS 0, 64 and 128 (row bands of the flow maps
            with an 8-row halo): kNN / masked-max launches per request
            (3 / 9, 14 / 42, 7 / 21), latency, peak memory and
@@ -116,13 +127,14 @@ Then a JSON line of per-kernel numbers (``launches`` per serving request;
 per train step and validation batch in f32 and in bf16; per exported
 map; per request from converted weights; per banded request), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
-``--phases train,train-bf16,train-dp,weights,parallel-eval`` (any subset of
-the five) runs only those, to try them on the card, and prints no result
+``--phases dataplane,train,train-bf16,train-dp,weights,parallel-eval`` (any
+subset of the six) runs only those, to try them on the card, and prints no result
 lines. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import shutil
@@ -670,6 +682,7 @@ def phase_train(dev, keep_ckpt: str, dtype: str = "float32") -> dict:
     plain version on the same inputs. The last checkpoint is copied to
     ``keep_ckpt`` (if given) before the tree goes. → {kernel: launches per
     flow step / per val batch, "step_ms", "peak_gib", "losses"}."""
+    from pointmvsnet_tpu_torch import native
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset.build import build_data_loader
     from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
@@ -705,12 +718,16 @@ def phase_train(dev, keep_ckpt: str, dtype: str = "float32") -> dict:
             if max_epoch == 2:
                 allow_tf32()
             knn.launches = edge.launches = 0
+            native.loads.update(pfm=0, cam=0)
             t0 = time.perf_counter()
             state = train(cfg, out, max_steps_per_epoch=2, device="cuda")
             torch.cuda.synchronize()
             if max_epoch == 2:
                 check_f32(f"train() ({label})")
             got = (knn.launches, edge.launches)
+            read = dict(native.loads)
+            check(read["pfm"] > 0 and read["cam"] > 0,
+                  f"{name}: the C data plane read {read} (PFMs, cams), want both > 0")
             check(state.step == steps, f"{name}: step counter {state.step}, want {steps}")
             check(state.optimizer.skipped_steps == 0, f"{name}: skipped a non-finite step")
             check(got == want, f"{name}: launches kNN/masked-max {got}, want {want}")
@@ -720,7 +737,8 @@ def phase_train(dev, keep_ckpt: str, dtype: str = "float32") -> dict:
                   f"{name}: non-finite parameters")
             print(f"{name}: MAX_EPOCH={max_epoch} B={b} {label}: step counter {state.step}, "
                   f"checkpoints {ckpts}, skipped steps 0, launches kNN {got[0]} masked-max "
-                  f"{got[1]}, {time.perf_counter() - t0:.1f} s", flush=True)
+                  f"{got[1]}, C data plane read {read['pfm']} PFMs and {read['cam']} cams, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         kw = dict(is_flow=True, img_scales=tuple(cfg.MODEL.TRAIN.IMG_SCALES),
                   inter_scales=tuple(cfg.MODEL.TRAIN.INTER_SCALES),
@@ -1137,7 +1155,7 @@ def phase_export(weight: str, work: str):
     It runs three times on the same export: the torch backend on the card,
     the numpy backend, and the torch backend on the CPU; each pair is held
     to the JAX package's bar between its backends (``clouds_agree``)."""
-    from pointmvsnet_tpu_torch import fuse
+    from pointmvsnet_tpu_torch import fuse, native
     from pointmvsnet_tpu_torch import test as test_cli
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset import io
@@ -1178,11 +1196,14 @@ def phase_export(weight: str, work: str):
             "TEST.WEIGHT", weight]
     allow_tf32()
     knn.launches = edge.launches = 0
+    native.loads.update(pfm=0, cam=0)
     t0 = time.perf_counter()
     summary, depth_dir = test_cli.main(args)
     t_cli = time.perf_counter() - t0
     check_f32("test.test (the test CLI)")
     nk, ne = knn.launches, edge.launches
+    cli_cams = native.loads["cam"]
+    check(cli_cams > 0, "export: the test CLI read no cam through the C data plane")
     n_maps = summary["maps"]
     check(n_maps == views, f"export: {n_maps} maps, want {views}")
     check(nk == 3 * n_maps and ne == 9 * n_maps,
@@ -1199,7 +1220,7 @@ def phase_export(weight: str, work: str):
           f"{summary['maps_per_s_after_first']:.3f} maps/s after the first map (which "
           f"decodes all {views} views; each view is decoded once), {t_cli:.1f} s with model "
           f"build and weight load; launches per map kNN {nk // n_maps} masked-max "
-          f"{ne // n_maps}; {smi_line()}", flush=True)
+          f"{ne // n_maps}; C data plane read {cli_cams} cams; {smi_line()}", flush=True)
 
     # the same item through the serving front end
     cfg = get_default_cfg()
@@ -1226,6 +1247,7 @@ def phase_export(weight: str, work: str):
           flush=True)
 
     clouds, secs = {}, {}
+    native.loads.update(pfm=0, cam=0)
     for label, backend, dev in (("card", "torch", "cuda"), ("numpy", "numpy", "cuda"),
                                 ("cpu", "torch", "cpu")):
         t0 = time.perf_counter()
@@ -1237,12 +1259,16 @@ def phase_export(weight: str, work: str):
         clouds[label] = read_ply(r["ply"])[0]
         check(len(clouds[label]) > 0 and np.isfinite(clouds[label]).all(),
               f"fuse {label}: {len(clouds[label])} points, or not finite")
+    fuse_read = dict(native.loads)
+    check(fuse_read["pfm"] > 0 and fuse_read["cam"] > 0,
+          f"fuse: the C data plane read {fuse_read} (PFMs, cams), want both > 0")
     pairs = {f"{a}-{b}": compare_clouds(clouds[a], clouds[b])
              for a, b in (("card", "numpy"), ("card", "cpu"), ("cpu", "numpy"))}
     print(f"export: fuse CLI at prob 0, 2 views, {views} maps of {flow3.shape[1]}x"
           f"{flow3.shape[0]}: torch on the card {secs['card']:.3f} s, numpy "
           f"{secs['numpy']:.3f} s, torch on the CPU {secs['cpu']:.3f} s (CLI wall, PFM reads "
-          f"and PLY write included); clouds {json.dumps(pairs)}; {smi_line()}", flush=True)
+          f"and PLY write included), C data plane read {fuse_read['pfm']} PFMs and "
+          f"{fuse_read['cam']} cams; clouds {json.dumps(pairs)}; {smi_line()}", flush=True)
     for name, c in pairs.items():
         check(clouds_agree(c), f"fuse {name}: {c}")
     return nk // n_maps, ne // n_maps
@@ -1783,6 +1809,172 @@ def phase_parallel_eval(dev) -> dict:
             for i, name in enumerate(("window_knn", "masked_window_max"))}
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean host time of ``fn`` over ``reps`` calls after one warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sweep_cam_text(rng) -> str:
+    """A cam.txt whose numbers are as write_cam writes a float32 (its repr)
+    or carry 1-9 significant digits; a depth line of 1-4 numbers."""
+    def num(lo, hi):
+        x = rng.uniform(lo, hi)
+        digits = rng.randint(0, 10)
+        return repr(float(np.float32(x))) if digits == 0 else f"{x:.{digits}g}"
+    ext = [" ".join(num(-1, 1) for _ in range(3)) + " " + num(-800, 800) for _ in range(3)]
+    k = [f"{num(100, 3000)} 0.0 {num(0, 2000)}", f"0.0 {num(100, 3000)} {num(0, 2000)}",
+         "0.0 0.0 1.0"]
+    depth = [num(0.1, 1000), num(0.001, 10), str(rng.choice([48, 96, 128, 192])),
+             num(100, 3000)][:rng.randint(1, 5)]
+    return "\n".join(["extrinsic", *ext, "0.0 0.0 0.0 1.0", "", "intrinsic", *k, "",
+                      " ".join(depth)]) + "\n"
+
+
+def loader_items_per_s(cfg, native_on: bool) -> tuple:
+    """One epoch of ``build_data_loader(cfg, "train")`` with the C path on or
+    off (PMVS_NO_NATIVE=1) → (items/s, items, cam files the C path read)."""
+    from pointmvsnet_tpu_torch import native
+    from pointmvsnet_tpu_torch.dataset import io
+    from pointmvsnet_tpu_torch.dataset.build import build_data_loader
+    if native_on:
+        os.environ.pop("PMVS_NO_NATIVE", None)
+    else:
+        os.environ["PMVS_NO_NATIVE"] = "1"
+    io.reset_native()
+    try:
+        cams = native.loads["cam"]
+        t0 = time.perf_counter()
+        n = sum(len(b["images"]) for b in build_data_loader(cfg, "train"))
+        secs = time.perf_counter() - t0
+    finally:
+        os.environ.pop("PMVS_NO_NATIVE", None)
+        io.reset_native()
+    return n / secs, n, native.loads["cam"] - cams
+
+
+def phase_dataplane():
+    """The C++ host data plane (native/src/dataplane.cpp) on this host: the
+    build; the C path against the Python readers bit for bit on the
+    reference train tree at 640×512, on 3-channel and scaled PFMs and on
+    2000 seeded cam files; host times of both paths and of the DTU train
+    loader (host clock, files in the page cache)."""
+    from pointmvsnet_tpu_torch import native
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.dataset import io
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
+
+    built = not native.lib_path().exists()
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"dataplane: {native.CXX} {native.compiler_version()} {' '.join(native.CXX_FLAGS)} "
+          f"{' '.join(native.LDLIBS)}: {lib.name} {'built' if built else 'found'} in "
+          f"{time.perf_counter() - t0:.2f} s; numpy {np.__version__}", flush=True)
+    check("PMVS_NO_NATIVE" not in os.environ, "dataplane: PMVS_NO_NATIVE is set")
+    io.reset_native()
+
+    def same(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+            np.ascontiguousarray(a).view(np.uint32), np.ascontiguousarray(b).view(np.uint32))
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                     "dtu_wde3.yaml"))
+    t = cfg.DATA.TRAIN
+    h, w, views = 512, 640, 5
+    work = tempfile.mkdtemp(prefix="chip_smoke_dataplane_")
+    try:
+        t0 = time.perf_counter()
+        make_synthetic_dtu(os.path.join(work, "dtu"), scans=[2], num_views=views, height=h,
+                           width=w, num_depth=t.NUM_VIRTUAL_PLANE)
+        t_tree = time.perf_counter() - t0
+        cams = sorted(glob.glob(os.path.join(work, "dtu", "Cameras", "*_cam.txt")))
+        depths = sorted(glob.glob(os.path.join(work, "dtu", "Depths", "*", "*.pfm")))
+        rng = np.random.RandomState(0)
+        extra = []
+        for i, (shape, scale) in enumerate([((h, w, 3), 1.0), ((h, w), 2.5), ((h, w, 3), 0.37),
+                                            ((37, 53), 2.5)]):
+            extra.append(os.path.join(work, f"extra{i}.pfm"))
+            io.write_pfm(extra[-1], rng.randn(*shape).astype(np.float32) * 100, scale=scale)
+        for p in depths + extra:
+            check(same(io.load_pfm(p), io._load_pfm_py(p)), f"dataplane: {p}: C != Python")
+        for p in cams:
+            for kw in ({}, dict(interval_scale=t.INTERVAL_SCALE, num_depth=t.NUM_VIRTUAL_PLANE)):
+                check(same(io.load_cam(p, **kw), io._load_cam_py(p, **kw)),
+                      f"dataplane: {p} {kw}: C != Python")
+        sweep = []
+        for i in range(2000):
+            sweep.append(os.path.join(work, f"sweep{i:04d}_cam.txt"))
+            with open(sweep[-1], "w") as f:
+                f.write(sweep_cam_text(rng))
+        twice = 0
+        for p in sweep:
+            for scale in (1.0, 1.06, 0.8):
+                for nd in (None, 0, 48, 96, 192):
+                    c, py = io.load_cam(p, scale, nd), io._load_cam_py(p, scale, nd)
+                    check(same(c, py), f"dataplane: sweep {p} x{scale} D={nd}: C != Python")
+                    twice += bool(nd) and c[1, 3, 3] != np.float32(c[1, 3, 0]) + np.float32(
+                        nd - 1) * np.float32(c[1, 3, 1])
+        print(f"dataplane: C path bit-equal to the Python readers on this host: {len(depths)} "
+              f"depth maps and {len(cams)} cams of a {w}x{h} train tree (D="
+              f"{t.NUM_VIRTUAL_PLANE}, x{t.INTERVAL_SCALE}; written in {t_tree:.1f} s), "
+              f"{len(extra)} PFMs of 3 channels or scale 2.5 / 0.37, 2000 seeded cam files x "
+              f"3 interval scales x 5 counts ({twice} reads where float32 arithmetic would "
+              f"round depth_max otherwise)", flush=True)
+
+        def read_bytes(path):
+            with open(path, "rb") as f:
+                return f.read()
+
+        depth, cam = depths[0], cams[0]
+        times = {"load_pfm": (host_ms(lambda: native.load_pfm(depth), 50),
+                              host_ms(lambda: io._load_pfm_py(depth), 50),
+                              host_ms(lambda: read_bytes(depth), 50)),
+                 "load_cam": (host_ms(lambda: native.load_cam(cam, 1.06, 48), 200),
+                              host_ms(lambda: io._load_cam_py(cam, 1.06, 48), 200),
+                              host_ms(lambda: read_bytes(cam), 200))}
+        batch = []
+        for i in range(49):
+            batch.append(os.path.join(work, f"batch{i:02d}.pfm"))
+            io.write_pfm(batch[-1], rng.rand(h, w).astype(np.float32) * 1000)
+        stacked = np.stack([io._load_pfm_py(p) for p in batch])
+        for n_threads in (1, 0):
+            check(same(native.load_pfm_batch(batch, h, w, n_threads=n_threads), stacked),
+                  f"dataplane: load_pfm_batch n_threads={n_threads} != Python")
+        batch_ms = {n: host_ms(lambda: native.load_pfm_batch(batch, h, w, n_threads=n), 10)
+                    for n in (1, 0)}
+        batch_py = host_ms(lambda: [io._load_pfm_py(p) for p in batch], 5)
+        print(f"dataplane: host ms, C path / Python / the file's bytes read in Python "
+              f"(mean): load_pfm {w}x{h} " + " / ".join(f"{v:.4f}" for v in times["load_pfm"])
+              + f" ({times['load_pfm'][1] / times['load_pfm'][0]:.2f}x), load_cam "
+              + " / ".join(f"{v:.4f}" for v in times["load_cam"])
+              + f" ({times['load_cam'][1] / times['load_cam'][0]:.2f}x); load_pfm_batch of 49 "
+              f"maps 1 thread {batch_ms[1]:.3f}, {os.cpu_count()} threads {batch_ms[0]:.3f} "
+              f"({batch_ms[1] / batch_ms[0]:.2f}x), Python loop {batch_py:.3f}; "
+              f"{smi_line()}", flush=True)
+
+        cfg.DATA.TRAIN.ROOT_DIR = os.path.join(work, "dtu")
+        rates = {}
+        for workers in (1, 4):
+            cfg.DATA.NUM_WORKERS = workers
+            for native_on in (True, False, False, True):
+                r, n, cams_read = loader_items_per_s(cfg, native_on)
+                check(bool(cams_read) == native_on,
+                      f"dataplane: loader with C path {native_on} read {cams_read} cams in C")
+                rates.setdefault((workers, native_on), []).append(r)
+        print(f"dataplane: DTU train loader (configs/dtu_wde3.yaml, {w}x{h}, V={t.NUM_VIEW}, "
+              f"B={cfg.TRAIN.BATCH_SIZE}, {n} items per epoch) items/s, C path / "
+              f"PMVS_NO_NATIVE=1, two epochs each: "
+              + "; ".join(f"NUM_WORKERS {wk} {[round(r, 2) for r in rates[(wk, True)]]} / "
+                          f"{[round(r, 2) for r in rates[(wk, False)]]}" for wk in (1, 4))
+              + f"; {smi_line()}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def profile_call(fn, what: str, top: int = 12):
     """One more call of ``fn`` under torch.profiler: device busy time (the
     sum of the GPU kernels and copies), its share of the call's wall time,
@@ -1811,8 +2003,8 @@ def profile_call(fn, what: str, top: int = 12):
               f"{e.key[:90]}", flush=True)
 
 
-PHASES = ["env", "build", "kernels", "adversarial", "gather", "parity", "serve", "train",
-          "train-parity", "export", "weights", "fusion-scan", "train-bf16", "train-dp",
+PHASES = ["env", "build", "dataplane", "kernels", "adversarial", "gather", "parity", "serve",
+          "train", "train-parity", "export", "weights", "fusion-scan", "train-bf16", "train-dp",
           "parallel-eval"]
 
 
@@ -1820,9 +2012,9 @@ def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
-                   help="comma-separated subset of train,train-bf16,train-dp,weights,"
-                        "parallel-eval to try on the card (prints no result lines); default: "
-                        "every phase")
+                   help="comma-separated subset of dataplane,train,train-bf16,train-dp,"
+                        "weights,parallel-eval to try on the card (prints no result lines); "
+                        "default: every phase")
     args = p.parse_args(argv)
     phases = ["env", "build"] + args.phases.split(",") if args.phases else PHASES
     if not torch.cuda.is_available():
@@ -1859,7 +2051,9 @@ def main(argv=None) -> int:
         # a partial run, to try phases on the card: no result lines
         per_train = phase_train(dev, None) if {"train", "train-bf16"} & set(phases) else None
         for name in phases[2:]:
-            if name == "train-bf16":
+            if name == "dataplane":
+                phase_dataplane()
+            elif name == "train-bf16":
                 phase_train_bf16(dev, per_train)
             elif name == "train-dp":
                 phase_train_dp(dev)
@@ -1875,6 +2069,7 @@ def main(argv=None) -> int:
                 fail(f"--phases: {name} runs only in a whole run")
         print(f"chip_smoke: partial run of {phases}: every check passed")
         return 0
+    phase_dataplane()
     tot = phase_kernels(dev)
     phase_adversarial(dev)
     gat = phase_gather(dev)

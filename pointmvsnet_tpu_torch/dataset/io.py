@@ -1,6 +1,8 @@
-"""MVSNet-format file I/O and images, numpy and the standard library only:
-the port's copy of ``pointmvsnet_tpu/dataset/io.py`` (PFM, cam.txt,
-pair.txt; the Python paths, not the C++ data plane) plus ``read_png`` /
+"""MVSNet-format file I/O and images: the port's copy of
+``pointmvsnet_tpu/dataset/io.py`` (PFM, cam.txt, pair.txt; PFMs and
+cameras read through the port's C++ data plane, ``native/``, unless
+``PMVS_NO_NATIVE`` is set, with the Python readers ``_load_pfm_py`` /
+``_load_cam_py`` beside it, bit-equal) plus ``read_png`` /
 ``write_png``, ``read_jpeg`` / ``write_jpeg`` (``dataset/jpeg.py``) and
 ``read_image``, which take the place of the JAX package's ``cv2.imread`` /
 ``cv2.imwrite``.
@@ -29,6 +31,7 @@ replicated, alpha dropped.
 
 from __future__ import annotations
 
+import os
 import re
 import struct
 import zlib
@@ -39,12 +42,51 @@ import numpy as np
 from pointmvsnet_tpu_torch.dataset.jpeg import read_jpeg, write_jpeg  # noqa: F401
 
 # ---------------------------------------------------------------------------
+# The C++ data plane
+# ---------------------------------------------------------------------------
+
+_NATIVE = None
+
+
+def _native():
+    """The C++ data plane (``pointmvsnet_tpu_torch.native``), built on first
+    use, or False where ``PMVS_NO_NATIVE`` is set. A failed build raises:
+    unlike the JAX package, which then reads in Python, only the variable
+    selects the Python readers."""
+    global _NATIVE
+    if _NATIVE is None:
+        if os.environ.get("PMVS_NO_NATIVE"):
+            _NATIVE = False
+        else:
+            from pointmvsnet_tpu_torch import native
+            native.load()
+            _NATIVE = native
+    return _NATIVE
+
+
+def reset_native() -> None:
+    """Choose again at the next read (after ``PMVS_NO_NATIVE`` changed)."""
+    global _NATIVE
+    _NATIVE = None
+
+
+# ---------------------------------------------------------------------------
 # PFM
 # ---------------------------------------------------------------------------
 
 
 def load_pfm(path: str) -> np.ndarray:
     """Read a PFM file → float32 array (H, W) or (H, W, 3), top-down rows."""
+    n = _native()
+    if n:
+        try:
+            return n.load_pfm(path)
+        except RuntimeError:
+            pass  # the Python reader raises the precise exception
+    return _load_pfm_py(path)
+
+
+def _load_pfm_py(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         header = f.readline().rstrip()
         if header == b"PF":
@@ -66,12 +108,14 @@ def load_pfm(path: str) -> np.ndarray:
     data = data.reshape(height, width, channels) if channels == 3 else data.reshape(height, width)
     data = np.flipud(data).astype(np.float32)          # PFM rows are bottom-up
     if scale not in (0.0, -1.0, 1.0):
-        data = data * abs(scale)
+        data = data * np.float32(abs(scale))
     return np.ascontiguousarray(data)
 
 
-def write_pfm(path: str, image: np.ndarray) -> None:
-    """Write a float32 array (H, W) or (H, W, 1|3) as little-endian PFM."""
+def write_pfm(path: str, image: np.ndarray, scale: float = 1.0) -> None:
+    """Write a float32 array (H, W) or (H, W, 1|3) as little-endian PFM with
+    the header scale ``|scale|`` (negative on disk: little-endian); a reader
+    multiplies the data by it unless it is 0 or 1."""
     image = np.asarray(image, dtype=np.float32)
     if image.ndim == 3 and image.shape[2] == 1:
         image = image[:, :, 0]
@@ -84,7 +128,7 @@ def write_pfm(path: str, image: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(header + b"\n")
         f.write(f"{image.shape[1]} {image.shape[0]}\n".encode())
-        f.write(b"-1.0\n")  # scale 1, negative → little-endian
+        f.write(f"{-abs(scale)}\n".encode())
         np.flipud(image).astype("<f4").tofile(f)
 
 
@@ -94,12 +138,29 @@ def write_pfm(path: str, image: np.ndarray) -> None:
 
 
 def load_cam(path: str, interval_scale: float = 1.0,
-             num_depth: int | None = None) -> np.ndarray:
+             num_depth: int | None = None, max_d: int = 0) -> np.ndarray:
     """Parse an MVSNet ``*_cam.txt`` → (2, 4, 4) float32 camera.
 
     ``interval_scale`` multiplies the depth interval. If the depth line has
-    fewer than 4 numbers, ``num_depth`` gives the hypothesis count and
+    fewer than 4 numbers and ``num_depth`` (or, where it is None,
+    ``max_d``) is above 0, it gives the hypothesis count and
     ``depth_max = depth_min + (num_depth − 1) · interval``."""
+    n = _native()
+    if n:
+        nd = num_depth if num_depth is not None else (max_d or 0)
+        try:
+            return n.load_cam(path, interval_scale, int(nd))
+        except RuntimeError:
+            pass  # the Python reader raises the precise exception
+    return _load_cam_py(path, interval_scale, num_depth, max_d)
+
+
+def _load_cam_py(path: str, interval_scale: float = 1.0,
+                 num_depth: int | None = None, max_d: int = 0) -> np.ndarray:
+    """The Python reader, bit-equal to the C path: the depth line in double,
+    ``depth_max`` from the float32 depth_min and interval in double and
+    rounded once (Python floats, whatever numpy's promotion rules), and
+    nothing filled in for a count of 0."""
     with open(path, "r") as f:
         words = f.read().split()
     cam = np.zeros((2, 4, 4), dtype=np.float32)
@@ -115,17 +176,17 @@ def load_cam(path: str, interval_scale: float = 1.0,
         raise ValueError(f"Malformed cam file {path!r}") from e
 
     nums = [float(w) for w in depth_words]
+    nd = int(num_depth if num_depth is not None else (max_d or 0))
     if len(nums) >= 1:
         cam[1, 3, 0] = nums[0]                        # depth_min
     if len(nums) >= 2:
-        cam[1, 3, 1] = nums[1] * interval_scale       # depth_interval
+        cam[1, 3, 1] = nums[1] * float(interval_scale)  # depth_interval
     if len(nums) >= 4:
         cam[1, 3, 2] = nums[2]                        # num_depth
         cam[1, 3, 3] = nums[3]                        # depth_max
-    elif num_depth is not None:
-        nd = float(num_depth)
+    elif nd > 0:
         cam[1, 3, 2] = nd
-        cam[1, 3, 3] = cam[1, 3, 0] + (nd - 1) * cam[1, 3, 1]
+        cam[1, 3, 3] = float(cam[1, 3, 0]) + (nd - 1) * float(cam[1, 3, 1])
     return cam
 
 
