@@ -11,17 +11,21 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            ``Predictor``, ``train()`` and ``test.test``, each entered with
            TF32 allowed), so every f32 gate holds for what users get.
 2. build   nvcc builds the three kernels from csrc/, in parallel.
-3. dataplane  the C++ host data plane (native/src/dataplane.cpp): g++'s
-           version, flags and build time; the C path bit-equal to the Python
-           readers on this host (its numpy may differ) on the reference
-           train tree at 640×512 (cams, depth PFMs), on 3-channel and scaled
-           PFMs and on 2000 seeded cam files under 3 interval scales and 5
-           counts; host times (mean) of load_pfm and load_cam on both paths
-           beside the bytes' read, of load_pfm_batch (49 maps, 1 thread and
-           all) and of the DTU train loader (configs/dtu_wde3.yaml) in
-           items/s at NUM_WORKERS 1 and 4, C path and PMVS_NO_NATIVE=1. The
-           train and export phases check ``native.loads``: the C path read
-           their PFMs and cams.
+3. dataplane  the C++ host data plane (native/src/dataplane.cpp and
+           image.cpp): g++'s version, flags and build time; the C path
+           bit-equal to the Python readers on this host (its numpy may
+           differ) on the reference train tree at 640×512 (cams, depth
+           PFMs), on 3-channel and scaled PFMs and on 2000 seeded cam files
+           under 3 interval scales and 5 counts; host times (mean) of
+           load_pfm and load_cam on both paths beside the bytes' read, of
+           load_pfm_batch (49 maps, 1 thread and all); the image path bit-equal
+           to its Python versions and timed on both: JPEG decode at 1600×1200
+           and 800×640, read_png of a 640×512 PNG with Up and with Paeth
+           rows, the linear resize 1600×1200 → 640×480; the DTU train loader
+           (configs/dtu_wde3.yaml) in items/s at NUM_WORKERS 1 and 4, C path
+           and PMVS_NO_NATIVE=1, and on a copy of its tree with Paeth rows.
+           The train and export phases check ``native.loads``: the C path
+           read their PFMs, cams and PNGs.
 4. kernels each CUDA kernel of the model against its plain PyTorch version
            on the card, at every shape the paper-eval forward gives it:
            windowed kNN (idx and mask bit-equal) and masked window max
@@ -72,7 +76,16 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            item; the fuse CLI with the torch backend on the card, with
            numpy and with torch on the CPU, each pair held to the JAX
            package's bar between its backends (equal counts, 1e-3).
-11. weights  the weights the JAX package loads. A reference-layout .pth
+11. export-dtu  the test CLI at DTU's real image size: an eval-release tree
+           of 1600×1200 JPEGs (scan 1, 6 views, D=96), the CLI at
+           configs/dtu_wde3.yaml in bf16 with weights from RNG_SEED; the C
+           data plane decodes and scales every view by 0.4 to 640×480, the
+           base-64 crop gives 640×448 maps; 3 kNN and 9 masked-max launches
+           per map, a finite flow3, ``native.loads`` of JPEGs and resizes
+           above 0, one item bit-equal with and without PMVS_NO_NATIVE=1;
+           host ms of the C and Python decode and resize, maps/s over the
+           loop and after the first map.
+12. weights  the weights the JAX package loads. A reference-layout .pth
            (tests/torch_mirror.py's TorchPointMVSNet at full width, BN
            statistics not an identity, a ``module.`` prefix) converted by
            the convert CLI in a subprocess and read by
@@ -86,26 +99,26 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            utils/orbax_reader.py on this host, the port on the card against
            the JAX package's depth beside it (expected.npz), the same bars.
            Conversion and read times, host clock.
-12. fusion-scan  both fusion backends on 49 noisy true depth maps of
+13. fusion-scan  both fusion backends on 49 noisy true depth maps of
            640×512 (a DTU eval scan's view count) at the fuse CLI's
            defaults: times, the card's peak memory, each cloud's accuracy
            / completeness against the scene; the card held to torch on the
            CPU on 9 of the maps (bars in phase_fusion_scan).
-13. train-bf16  the train phase with MODEL.DTYPE bfloat16: step counter,
+14. train-bf16  the train phase with MODEL.DTYPE bfloat16: step counter,
            checkpoints and resume, 0 skipped steps, finite parameters, 2
            kNN and 0 masked-max launches per flow step, 2 kNN and 6
            masked-max (bf16; 4 at F=32, 2 at F=64) per validation batch,
            the validation batch's kernel calls bit-equal to their plain
            versions, step time and peak memory beside the f32 phase's, a
            profiled step; then one B=2 BatchNorm bf16 flow step, finite.
-14. train-dp  train() inside a one-rank NCCL group bit-equal to train()
+15. train-dp  train() inside a one-rank NCCL group bit-equal to train()
            without a group (2 + 2 steps, deterministic algorithms, in a
            process of its own); then two ranks on cuda:0 over gloo at
            64×128, global B=4, BN, f32 and bf16, a coarse-only and a flow
            step each, against the one-rank step at B=4 on the card, with
            the bars of tests/test_torch_distributed.py (printed). One card
            cannot show NCCL between cards.
-15. parallel-eval  the paper-eval request through Predictor at
+16. parallel-eval  the paper-eval request through Predictor at
            MODEL.FLOW_CHUNK_ROWS 0, 64 and 128 (row bands of the flow maps
            with an 8-row halo): kNN / masked-max launches per request
            (3 / 9, 14 / 42, 7 / 21), latency, peak memory and
@@ -127,13 +140,14 @@ Then a JSON line of per-kernel numbers (``launches`` per serving request;
 per train step and validation batch in f32 and in bf16; per exported
 map; per request from converted weights; per banded request), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
-``--phases dataplane,train,train-bf16,train-dp,weights,parallel-eval`` (any
-subset of the six) runs only those, to try them on the card, and prints no result
-lines. Imports nothing of JAX.
+``--phases dataplane,train,train-bf16,train-dp,export-dtu,weights,parallel-eval``
+(any subset of the seven) runs only those, to try them on the card, and
+prints no result lines. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -718,7 +732,7 @@ def phase_train(dev, keep_ckpt: str, dtype: str = "float32") -> dict:
             if max_epoch == 2:
                 allow_tf32()
             knn.launches = edge.launches = 0
-            native.loads.update(pfm=0, cam=0)
+            native.loads.update(dict.fromkeys(native.loads, 0))
             t0 = time.perf_counter()
             state = train(cfg, out, max_steps_per_epoch=2, device="cuda")
             torch.cuda.synchronize()
@@ -726,8 +740,8 @@ def phase_train(dev, keep_ckpt: str, dtype: str = "float32") -> dict:
                 check_f32(f"train() ({label})")
             got = (knn.launches, edge.launches)
             read = dict(native.loads)
-            check(read["pfm"] > 0 and read["cam"] > 0,
-                  f"{name}: the C data plane read {read} (PFMs, cams), want both > 0")
+            check(read["pfm"] > 0 and read["cam"] > 0 and read["png"] > 0,
+                  f"{name}: the C data plane read {read} (PFMs, cams, PNGs), want all > 0")
             check(state.step == steps, f"{name}: step counter {state.step}, want {steps}")
             check(state.optimizer.skipped_steps == 0, f"{name}: skipped a non-finite step")
             check(got == want, f"{name}: launches kNN/masked-max {got}, want {want}")
@@ -737,7 +751,8 @@ def phase_train(dev, keep_ckpt: str, dtype: str = "float32") -> dict:
                   f"{name}: non-finite parameters")
             print(f"{name}: MAX_EPOCH={max_epoch} B={b} {label}: step counter {state.step}, "
                   f"checkpoints {ckpts}, skipped steps 0, launches kNN {got[0]} masked-max "
-                  f"{got[1]}, C data plane read {read['pfm']} PFMs and {read['cam']} cams, "
+                  f"{got[1]}, C data plane read {read['pfm']} PFMs, {read['cam']} cams and "
+                  f"{read['png']} PNGs, "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         kw = dict(is_flow=True, img_scales=tuple(cfg.MODEL.TRAIN.IMG_SCALES),
@@ -1272,6 +1287,106 @@ def phase_export(weight: str, work: str):
     for name, c in pairs.items():
         check(clouds_agree(c), f"fuse {name}: {c}")
     return nk // n_maps, ne // n_maps
+
+
+def phase_export_dtu(work: str):
+    """The test CLI on DTU's real image size (see the module docstring):
+    1600×1200 JPEGs, decoded and resized by the C++ data plane while the
+    card runs the forward."""
+    from pointmvsnet_tpu_torch import native
+    from pointmvsnet_tpu_torch import test as test_cli
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.dataset import io, jpeg
+    from pointmvsnet_tpu_torch.dataset.dtu import DTUTestDataset
+    from pointmvsnet_tpu_torch.dataset.preprocess import _linear_taps, _resize_linear_py
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
+    from pointmvsnet_tpu_torch.ops import edge, knn
+
+    h, w, views, depths = 1200, 1600, 6, 96
+    tree = os.path.join(work, "dtu_eval_1600")
+    t0 = time.perf_counter()
+    make_synthetic_dtu(tree, scans=[1], layout="eval", num_views=views, height=h, width=w,
+                       num_depth=depths)
+    t_tree = time.perf_counter() - t0
+    img_dir = os.path.join(tree, "Eval", "scan1", "images")
+    jpgs = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+    io.reset_native()
+    t_dec = []
+    for p in jpgs:
+        t0 = time.perf_counter()
+        img = io.read_jpeg(p)
+        t_dec.append((time.perf_counter() - t0) * 1e3)
+        check(img.shape == (h, w, 3), f"export-dtu: {p} decodes to {img.shape}")
+    with open(jpgs[0], "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    py = jpeg._decode_jpeg_py(data)
+    t_py = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(py, io.read_jpeg(jpgs[0])), "export-dtu: view 0: C decode != Python")
+    x = py.astype(np.float32)
+    taps = (_linear_taps(480, h), _linear_taps(640, w))
+    c_resize = host_ms(lambda: native.resize_linear(x, *taps), 10)
+    np_resize = host_ms(lambda: _resize_linear_py(x, *taps), 5)
+    print(f"export-dtu: eval tree {w}x{h}, {views} views, D={depths}, written in {t_tree:.1f} s; "
+          f"JPEG {np.mean([os.path.getsize(p) for p in jpgs]) / 1e3:.0f} kB per image; host ms: "
+          f"read_jpeg C path {np.mean(t_dec):.2f} (mean of {views}, {min(t_dec):.2f}-"
+          f"{max(t_dec):.2f}), Python {t_py:.1f} (view 0, once; bit-equal); linear resize "
+          f"to 640x480 C {c_resize:.3f} / numpy {np_resize:.3f} (mean); {smi_line()}", flush=True)
+
+    out = os.path.join(work, "export_dtu")
+    cfg_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "dtu_wde3.yaml")
+    args = ["--cfg", cfg_file, "--device", "cuda", "MODEL.DTYPE", "bfloat16",
+            "DATA.TEST.ROOT_DIR", tree, "DATA.TEST.NUM_VIRTUAL_PLANE", str(depths),
+            "OUTPUT_DIR", out]
+    knn.launches = edge.launches = 0
+    native.loads.update(dict.fromkeys(native.loads, 0))
+    t0 = time.perf_counter()
+    summary, depth_dir = test_cli.main(args)
+    t_cli = time.perf_counter() - t0
+    nk, ne = knn.launches, edge.launches
+    read = dict(native.loads)
+    n_maps = summary["maps"]
+    check(n_maps == views, f"export-dtu: {n_maps} maps, want {views}")
+    check(nk == 3 * n_maps and ne == 9 * n_maps,
+          f"export-dtu: {nk} kNN and {ne} masked-max launches for {n_maps} maps, want 3 and 9 "
+          f"each")
+    check(read["jpeg"] > 0 and read["resize"] > 0 and read["cam"] > 0,
+          f"export-dtu: the C data plane read {read}, want JPEGs, resizes and cams > 0")
+    flow3 = io.load_pfm(os.path.join(depth_dir, "scan1", "00000000_flow3.pfm"))
+    check(flow3.shape == (448, 640) and np.isfinite(flow3).all(),
+          f"export-dtu: flow3 {flow3.shape}, finite {np.isfinite(flow3).all()}")
+    print(f"export-dtu: test CLI bf16 (configs/dtu_wde3.yaml, weights from RNG_SEED), {n_maps} "
+          f"maps of {flow3.shape[1]}x{flow3.shape[0]} from {w}x{h} JPEGs (scale 0.4, base-64 "
+          f"crop): {summary['maps_per_s']:.3f} maps/s over the loop, "
+          f"{summary['maps_per_s_after_first']:.3f} maps/s after the first map, {t_cli:.1f} s "
+          f"with model build; launches per map kNN {nk // n_maps} masked-max {ne // n_maps}; "
+          f"the C data plane decoded {read['jpeg']} JPEGs, resized {read['resize']} images and "
+          f"read {read['cam']} cams; {smi_line()}", flush=True)
+
+    # one item through the C path and through the Python path
+    cfg = get_default_cfg()
+    cfg.merge_from_file(cfg_file)
+    t = cfg.DATA.TEST
+
+    def item():
+        ds = DTUTestDataset(tree, num_view=t.NUM_VIEW, num_virtual_plane=depths,
+                            interval_scale=t.INTERVAL_SCALE, img_height=t.IMG_HEIGHT,
+                            img_width=t.IMG_WIDTH)
+        t0 = time.perf_counter()
+        got = ds[ds.index.index((1, 0))]
+        return got, time.perf_counter() - t0
+
+    c_item, c_s = item()
+    with python_readers():
+        py_item, py_s = item()
+    for k in ("images", "cams"):
+        check(c_item[k].dtype == py_item[k].dtype and np.array_equal(
+            c_item[k].view(np.uint32), py_item[k].view(np.uint32)),
+            f"export-dtu: item {k}: C path != PMVS_NO_NATIVE=1")
+    print(f"export-dtu: item (scan 1, view 0; {t.NUM_VIEW} views decoded, resized, cropped to "
+          f"{c_item['images'].shape[2]}x{c_item['images'].shape[1]} and standardized) bit-equal "
+          f"on the C path ({c_s:.3f} s) and with PMVS_NO_NATIVE=1 ({py_s:.3f} s); host clock",
+          flush=True)
 
 
 def phase_weights(work: str):
@@ -1834,26 +1949,101 @@ def sweep_cam_text(rng) -> str:
                       " ".join(depth)]) + "\n"
 
 
-def loader_items_per_s(cfg, native_on: bool) -> tuple:
-    """One epoch of ``build_data_loader(cfg, "train")`` with the C path on or
-    off (PMVS_NO_NATIVE=1) → (items/s, items, cam files the C path read)."""
-    from pointmvsnet_tpu_torch import native
+@contextlib.contextmanager
+def python_readers():
+    """PMVS_NO_NATIVE=1 inside the block: the port's Python readers, JPEG
+    decoder, PNG unfilter and linear resize."""
     from pointmvsnet_tpu_torch.dataset import io
-    from pointmvsnet_tpu_torch.dataset.build import build_data_loader
-    if native_on:
-        os.environ.pop("PMVS_NO_NATIVE", None)
-    else:
-        os.environ["PMVS_NO_NATIVE"] = "1"
+    os.environ["PMVS_NO_NATIVE"] = "1"
     io.reset_native()
     try:
-        cams = native.loads["cam"]
-        t0 = time.perf_counter()
-        n = sum(len(b["images"]) for b in build_data_loader(cfg, "train"))
-        secs = time.perf_counter() - t0
+        yield
     finally:
         os.environ.pop("PMVS_NO_NATIVE", None)
         io.reset_native()
-    return n / secs, n, native.loads["cam"] - cams
+
+
+def loader_items_per_s(cfg, native_on: bool) -> tuple:
+    """One epoch of ``build_data_loader(cfg, "train")`` with the C path on or
+    off (PMVS_NO_NATIVE=1) → (items/s, items, {kind: files the C path read})."""
+    from pointmvsnet_tpu_torch import native
+    from pointmvsnet_tpu_torch.dataset import io
+    from pointmvsnet_tpu_torch.dataset.build import build_data_loader
+    before = dict(native.loads)
+    with contextlib.nullcontext() if native_on else python_readers():
+        io.reset_native()
+        t0 = time.perf_counter()
+        n = sum(len(b["images"]) for b in build_data_loader(cfg, "train"))
+        secs = time.perf_counter() - t0
+    return n / secs, n, {k: native.loads[k] - before[k] for k in before}
+
+
+def texture(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """(h, w, 3) uint8, C-contiguous as a decoded image: the synthetic
+    scenes' smooth texture with pixel noise."""
+    from pointmvsnet_tpu_torch.dataset.synthetic import _texture
+    return np.ascontiguousarray(_texture(np.random.RandomState(seed), h, w))
+
+
+def phase_dataplane_images(work: str, up_png: str):
+    """The image path of the C++ data plane (native/src/image.cpp) on this
+    host: JPEG decode at 1600×1200 and 800×640, PNG read with Up and with
+    Paeth rows at 640×512, the linear resize 1600×1200 → 640×480; each
+    bit-equal to the Python path, and host ms of both (mean; the slow
+    Python decode once)."""
+    from pointmvsnet_tpu_torch import native
+    from pointmvsnet_tpu_torch.dataset import io, jpeg
+    from pointmvsnet_tpu_torch.dataset.preprocess import (
+        _linear_taps,
+        _resize_linear_py,
+        resize_image,
+    )
+
+    def read_bytes(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    parts = []
+    for h, w in ((1200, 1600), (640, 800)):
+        path = os.path.join(work, f"texture{w}.jpg")
+        io.write_jpeg(path, texture(h, w))
+        data = read_bytes(path)
+        before = native.loads["jpeg"]
+        c_ms = host_ms(lambda: io.read_jpeg(path), 10)
+        check(native.loads["jpeg"] == before + 11, "dataplane: read_jpeg did not take the C path")
+        t0 = time.perf_counter()
+        py = jpeg._decode_jpeg_py(data)
+        py_ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(io.read_jpeg(path), py), f"dataplane: JPEG {w}x{h}: C != Python")
+        parts.append(f"JPEG {w}x{h} ({len(data) / 1e3:.0f} kB, write_jpeg) C {c_ms:.3f} / "
+                     f"Python {py_ms:.1f} ({py_ms / c_ms:.1f}x)")
+
+    paeth_png = os.path.join(work, "paeth.png")
+    io.write_png(paeth_png, io.read_png(up_png), filters=4)
+    for label, path in (("Up", up_png), ("Paeth", paeth_png)):
+        before = native.loads["png"]
+        c_ms = host_ms(lambda: io.read_png(path), 20)
+        check(native.loads["png"] == before + 21, "dataplane: read_png did not take the C path")
+        c_img = io.read_png(path)
+        with python_readers():
+            py_ms = host_ms(lambda: io.read_png(path), 3)
+            check(np.array_equal(io.read_png(path), c_img), f"dataplane: PNG {label}: C != Python")
+        parts.append(f"read_png {c_img.shape[1]}x{c_img.shape[0]} {label} rows C {c_ms:.3f} / "
+                     f"Python {py_ms:.3f} ({py_ms / c_ms:.1f}x)")
+
+    x = texture(1200, 1600).astype(np.float32)
+    taps = (_linear_taps(480, 1200), _linear_taps(640, 1600))
+    before = native.loads["resize"]
+    c_ms = host_ms(lambda: resize_image(x, (480, 640), "linear"), 10)
+    check(native.loads["resize"] == before + 11, "dataplane: resize_image took no C path")
+    py_ms = host_ms(lambda: _resize_linear_py(x, *taps), 5)
+    c_out, py_out = resize_image(x, (480, 640), "linear"), _resize_linear_py(x, *taps)
+    check(np.array_equal(c_out.view(np.uint32), py_out.view(np.uint32)),
+          "dataplane: linear resize: C != numpy")
+    parts.append(f"linear resize 1600x1200x3 f32 -> 640x480 C {c_ms:.3f} / numpy {py_ms:.3f} "
+                 f"({py_ms / c_ms:.1f}x)")
+    print("dataplane: image path bit-equal to the Python path on this host; host ms, C path / "
+          "Python (mean): " + "; ".join(parts) + f"; {smi_line()}", flush=True)
 
 
 def phase_dataplane():
@@ -1956,21 +2146,46 @@ def phase_dataplane():
               f"({batch_ms[1] / batch_ms[0]:.2f}x), Python loop {batch_py:.3f}; "
               f"{smi_line()}", flush=True)
 
+        pngs = sorted(glob.glob(os.path.join(work, "dtu", "Rectified", "*", "*.png")))
+        phase_dataplane_images(work, pngs[0])
+
         cfg.DATA.TRAIN.ROOT_DIR = os.path.join(work, "dtu")
         rates = {}
         for workers in (1, 4):
             cfg.DATA.NUM_WORKERS = workers
             for native_on in (True, False, False, True):
-                r, n, cams_read = loader_items_per_s(cfg, native_on)
-                check(bool(cams_read) == native_on,
-                      f"dataplane: loader with C path {native_on} read {cams_read} cams in C")
+                r, n, read = loader_items_per_s(cfg, native_on)
+                check(bool(read["cam"]) == native_on and bool(read["png"]) == native_on,
+                      f"dataplane: loader with C path {native_on} read {read} in C")
                 rates.setdefault((workers, native_on), []).append(r)
         print(f"dataplane: DTU train loader (configs/dtu_wde3.yaml, {w}x{h}, V={t.NUM_VIEW}, "
-              f"B={cfg.TRAIN.BATCH_SIZE}, {n} items per epoch) items/s, C path / "
-              f"PMVS_NO_NATIVE=1, two epochs each: "
+              f"B={cfg.TRAIN.BATCH_SIZE}, {n} items per epoch, PNGs with Up rows) items/s, C "
+              f"path / PMVS_NO_NATIVE=1, two epochs each: "
               + "; ".join(f"NUM_WORKERS {wk} {[round(r, 2) for r in rates[(wk, True)]]} / "
                           f"{[round(r, 2) for r in rates[(wk, False)]]}" for wk in (1, 4))
               + f"; {smi_line()}", flush=True)
+
+        # the same tree with Paeth rows, as libpng's adaptive filters choose
+        # them often (the Python unfilter walks such rows along diagonals)
+        paeth = os.path.join(work, "dtu_paeth")
+        shutil.copytree(os.path.join(work, "dtu"), paeth)
+        t0 = time.perf_counter()
+        for p in glob.glob(os.path.join(paeth, "Rectified", "*", "*.png")):
+            io.write_png(p, io.read_png(p), filters=4)
+        t_paeth = time.perf_counter() - t0
+        cfg.DATA.TRAIN.ROOT_DIR = paeth
+        cfg.DATA.NUM_WORKERS = 1
+        rates = {}
+        for native_on in (True, False, True):
+            r, n, read = loader_items_per_s(cfg, native_on)
+            check(bool(read["png"]) == native_on,
+                  f"dataplane: Paeth loader with C path {native_on} read {read} in C")
+            rates.setdefault(native_on, []).append(r)
+        print(f"dataplane: DTU train loader on the tree rewritten with Paeth rows (in "
+              f"{t_paeth:.1f} s), NUM_WORKERS 1, items/s C path "
+              f"{[round(r, 2) for r in rates[True]]} / PMVS_NO_NATIVE=1 "
+              f"{[round(r, 2) for r in rates[False]]}; {smi_line()}",
+              flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2004,8 +2219,8 @@ def profile_call(fn, what: str, top: int = 12):
 
 
 PHASES = ["env", "build", "dataplane", "kernels", "adversarial", "gather", "parity", "serve",
-          "train", "train-parity", "export", "weights", "fusion-scan", "train-bf16", "train-dp",
-          "parallel-eval"]
+          "train", "train-parity", "export", "export-dtu", "weights", "fusion-scan", "train-bf16",
+          "train-dp", "parallel-eval"]
 
 
 def main(argv=None) -> int:
@@ -2013,8 +2228,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
                    help="comma-separated subset of dataplane,train,train-bf16,train-dp,"
-                        "weights,parallel-eval to try on the card (prints no result lines); "
-                        "default: every phase")
+                        "export-dtu,weights,parallel-eval to try on the card (prints no result "
+                        "lines); default: every phase")
     args = p.parse_args(argv)
     phases = ["env", "build"] + args.phases.split(",") if args.phases else PHASES
     if not torch.cuda.is_available():
@@ -2059,10 +2274,10 @@ def main(argv=None) -> int:
                 phase_train_dp(dev)
             elif name == "parallel-eval":
                 phase_parallel_eval(dev)
-            elif name == "weights":
-                work = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+            elif name in ("weights", "export-dtu"):
+                work = tempfile.mkdtemp(prefix="chip_smoke_partial_")
                 try:
-                    phase_weights(work)
+                    (phase_weights if name == "weights" else phase_export_dtu)(work)
                 finally:
                     shutil.rmtree(work, ignore_errors=True)
             elif name != "train":
@@ -2082,6 +2297,7 @@ def main(argv=None) -> int:
         phase_edge_conv_backward()
         phase_train_parity()
         per_map = phase_export(weight, work)
+        phase_export_dtu(work)
         per_weights = phase_weights(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -5,7 +5,8 @@ cameras read through the port's C++ data plane, ``native/``, unless
 ``_load_cam_py`` beside it, bit-equal) plus ``read_png`` /
 ``write_png``, ``read_jpeg`` / ``write_jpeg`` (``dataset/jpeg.py``) and
 ``read_image``, which take the place of the JAX package's ``cv2.imread`` /
-``cv2.imwrite``.
+``cv2.imwrite``. PNG rows are unfiltered by the C++ library too (Python:
+``_unfilter``); inflate is ``zlib``'s.
 
 cam.txt::
 
@@ -52,7 +53,8 @@ def _native():
     """The C++ data plane (``pointmvsnet_tpu_torch.native``), built on first
     use, or False where ``PMVS_NO_NATIVE`` is set. A failed build raises:
     unlike the JAX package, which then reads in Python, only the variable
-    selects the Python readers."""
+    selects the Python readers (and the Python JPEG decoder, PNG unfilter
+    and linear resize)."""
     global _NATIVE
     if _NATIVE is None:
         if os.environ.get("PMVS_NO_NATIVE"):
@@ -306,7 +308,8 @@ def read_png(path: str) -> np.ndarray:
     if rows.size != h * (1 + w * bpp):
         raise ValueError(f"{path!r}: {rows.size} image bytes, want {h * (1 + w * bpp)}")
     rows = rows.reshape(h, 1 + w * bpp)
-    px = _unfilter(rows[:, 1:], rows[:, 0], h, w, bpp)
+    n = _native()
+    px = n.png_unfilter(rows, h, w, bpp) if n else _unfilter(rows[:, 1:], rows[:, 0], h, w, bpp)
     if color in (0, 4):
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])

@@ -14,12 +14,16 @@ MCU. It follows libjpeg's defaults, so that its output can match
   replication for other integral factors;
 - the fixed-point YCbCr→RGB tables of ``jdcolor.c`` (16 fraction bits).
 
-Huffman decoding is a Python loop over one 65,536-entry lookup table per
-Huffman table, reading 32-bit windows of the entropy-coded bits; the rest
-(dequantisation, the IDCT of all blocks of a component at once,
-upsampling, colour) is numpy. Progressive, arithmetic-coded, lossless,
-hierarchical and 12-bit files raise ``ValueError`` naming what they are.
-EXIF orientation is not applied.
+The entropy decode of each scan and the reconstruction (dequantisation,
+IDCT, upsampling, colour) run in the port's C++ library
+(``native/src/image.cpp``) unless ``PMVS_NO_NATIVE`` is set; the marker
+parse stays here, so the C code sees only validated headers. The Python
+versions beside it (``_decode_jpeg_py``) give the same bytes and raise the
+same exceptions: Huffman decoding as a Python loop over one 65,536-entry
+lookup table per Huffman table, reading 32-bit windows of the
+entropy-coded bits, the rest in numpy. Progressive, arithmetic-coded,
+lossless, hierarchical and 12-bit files raise ``ValueError`` naming what
+they are. EXIF orientation is not applied.
 
 Writer (``write_jpeg``): baseline, 4:2:0, the Annex K quantisation tables
 scaled to quality 95 (cv2's default) as libjpeg scales them, the Annex K
@@ -307,6 +311,18 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes → (H, W, 3) uint8 RGB (see the module docstring)."""
+    from pointmvsnet_tpu_torch.dataset.io import _native      # io imports this module
+    lib = _native()
+    return _decode(data, _NativeCodec(lib) if lib else _PythonCodec)
+
+
+def _decode_jpeg_py(data: bytes) -> np.ndarray:
+    """``decode_jpeg`` in Python and numpy alone: the plain version of the
+    C path, and the PMVS_NO_NATIVE path."""
+    return _decode(data, _PythonCodec)
+
+
+def _decode(data: bytes, codec) -> np.ndarray:
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qt, dc_h, ac_h = {}, {}, {}
@@ -357,14 +373,14 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             offs = np.cumsum([0] + [c["bw"] * c["bh"] for c in comps])
             for c, o in zip(comps, offs):
                 c["off"] = int(o)
-            coefs = np.zeros(int(offs[-1]) * 64, np.int64)
+            coefs = np.zeros(int(offs[-1]) * 64, codec.coef_dtype)
         elif marker == 0xC4:                     # DHT
             p = 0
             while p < len(body):
                 tc_th = body[p]
                 bits = body[p + 1:p + 17]
                 n = sum(bits)
-                (ac_h if tc_th >> 4 else dc_h)[tc_th & 15] = _huffman_lookup(
+                (ac_h if tc_th >> 4 else dc_h)[tc_th & 15] = codec.table(
                     bits, body[p + 17:p + 17 + n])
                 p += 17 + n
         elif marker == 0xDB:                     # DQT
@@ -400,24 +416,21 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if (ss, se) != (0, 63):
                 raise ValueError(f"JPEG scan with spectral selection {ss}..{se} (progressive)")
             slots, offsets, n_mcu = _scan_layout(frame, scomps)
-            segs, pos = _entropy_segments(data, pos)
-            packed = np.asarray(_decode_scan(segs, n_mcu, restart, slots, offsets, dct, act),
-                                np.int64)
-            coefs[packed >> 16] = (packed & 0xFFFF) - 32768
+            pos = codec.scan(data, pos, n_mcu, restart, slots, offsets, dct, act, coefs)
     if frame is None or coefs is None:
         raise ValueError("JPEG without a frame or a scan")
-    return _reconstruct(frame, coefs, qt, adobe)
+    return codec.reconstruct(frame, coefs, qt, adobe)
 
 
 def _scan_layout(frame, scomps):
     """Stream order of a scan's blocks: (slot per block, coefficient offset
-    per block, MCU count)."""
+    per block, MCU count); the first two as arrays."""
     if len(scomps) == 1:                         # non-interleaved: the component's own grid
         c = scomps[0]
         nbw, nbh = -(-c["dw"] // 8), -(-c["dh"] // 8)
         r = np.arange(nbh)[:, None] * c["bw"] + np.arange(nbw)[None, :]
         offsets = (c["off"] + r.ravel()) * 64
-        return [0] * offsets.size, offsets.tolist(), offsets.size
+        return np.zeros(offsets.size, np.int32), offsets, offsets.size
     per_mcu = []
     for j, c in enumerate(scomps):
         for v in range(c["v"]):
@@ -427,8 +440,8 @@ def _scan_layout(frame, scomps):
     my, mx = my.ravel(), mx.ravel()
     offs = np.stack([(c["off"] + (my * c["v"] + v) * c["bw"] + mx * c["h"] + hh) * 64
                      for _, c, v, hh in per_mcu], axis=1)
-    slots = [j for j, _, _, _ in per_mcu] * my.size
-    return slots, offs.ravel().tolist(), my.size
+    slots = np.tile(np.array([j for j, _, _, _ in per_mcu], np.int32), my.size)
+    return slots, offs.ravel(), my.size
 
 
 def _reconstruct(frame, coefs, qt, adobe) -> np.ndarray:
@@ -445,10 +458,61 @@ def _reconstruct(frame, coefs, qt, adobe) -> np.ndarray:
         planes.append(full[:h, :w])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=2)
-    ids = bytes(c["id"] for c in frame["comps"])
-    if adobe == 0 or (adobe is None and ids == b"RGB"):
+    if _is_rgb(frame, adobe):
         return np.stack(planes, axis=-1)
     return _ycc_to_rgb(*planes)
+
+
+def _is_rgb(frame, adobe) -> bool:
+    """Three components stored as RGB: an Adobe transform of 0, or no Adobe
+    segment and the component ids "RGB"."""
+    ids = bytes(c["id"] for c in frame["comps"])
+    return adobe == 0 or (adobe is None and ids == b"RGB")
+
+
+class _PythonCodec:
+    """The scan decode and the reconstruction in Python and numpy."""
+
+    coef_dtype = np.int64
+    table = staticmethod(_huffman_lookup)
+    reconstruct = staticmethod(_reconstruct)
+
+    @staticmethod
+    def scan(data, start, n_mcu, restart, slots, offsets, dct, act, coefs) -> int:
+        segs, end = _entropy_segments(data, start)
+        packed = np.asarray(_decode_scan(segs, n_mcu, restart, slots.tolist(), offsets.tolist(),
+                                         dct, act), np.int64)
+        coefs[packed >> 16] = (packed & 0xFFFF) - 32768
+        return end
+
+
+class _NativeCodec:
+    """The scan decode and the reconstruction in the C++ library."""
+
+    coef_dtype = np.int16          # every scattered value is (p & 0xFFFF) − 32768
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    @staticmethod
+    def table(bits: bytes, vals: bytes):
+        if len(bits) < 16 or len(vals) < sum(bits):
+            raise IndexError("index out of range")   # where _huffman_lookup runs out of bytes
+        return bits, vals
+
+    def scan(self, data, start, n_mcu, restart, slots, offsets, dct, act, coefs) -> int:
+        specs = list(dict.fromkeys(dct + act))
+        return self.lib.jpeg_scan(data, start, n_mcu, restart, slots, offsets, specs,
+                                  np.array([specs.index(t) for t in dct], np.int32),
+                                  np.array([specs.index(t) for t in act], np.int32), coefs)
+
+    def reconstruct(self, frame, coefs, qt, adobe) -> np.ndarray:
+        comps = frame["comps"]
+        q = np.stack([qt[c["tq"]] for c in comps])
+        info = np.array([[c["off"], c["bw"], c["bh"], c["dw"], c["dh"], frame["hmax"] // c["h"],
+                          frame["vmax"] // c["v"]] for c in comps], np.int32)
+        mode = 0 if len(comps) == 1 else 1 if _is_rgb(frame, adobe) else 2
+        return self.lib.jpeg_reconstruct(coefs, info, q, frame["h"], frame["w"], mode)
 
 
 def read_jpeg(path: str) -> np.ndarray:

@@ -4,13 +4,17 @@ scale_image, scale_mvs_input, crop_mvs_input, mask_depth_image`` and of
 the nearest and linear cases of ``resize_image``, with cv2's
 ``INTER_NEAREST`` / ``INTER_LINEAR`` semantics (no cv2). ``resize_image``
 defaults to the nearest rule, which the training split uses for depth;
-the JAX package defaults to linear."""
+the JAX package defaults to linear. The linear case runs in the port's
+C++ library (``native``) unless ``PMVS_NO_NATIVE`` is set, bit-equal to
+its numpy version ``_resize_linear_py``."""
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from pointmvsnet_tpu_torch.dataset.io import _native
 
 
 def norm_image(img: np.ndarray) -> np.ndarray:
@@ -93,9 +97,19 @@ def resize_image(img: np.ndarray, shape_hw: Tuple[int, int],
         return img[src(nh, h)][:, src(nw, w)]
     if interpolation != "linear":
         raise ValueError(f"interpolation {interpolation!r}: want 'nearest' or 'linear'")
+    taps_x = _linear_taps(nw, w)
+    taps_y = _linear_taps(nh, h)
+    n = _native()
+    if n:
+        return n.resize_linear(img, taps_y, taps_x)
+    return _resize_linear_py(img, taps_y, taps_x)
+
+
+def _resize_linear_py(img: np.ndarray, taps_y, taps_x) -> np.ndarray:
+    """``resize_image(..., "linear")`` in numpy: the plain version of the C
+    path, and the PMVS_NO_NATIVE path."""
     x = np.asarray(img, np.float32)
-    x0, x1, ax0, ax1 = _linear_taps(nw, w)
-    y0, y1, ay0, ay1 = _linear_taps(nh, h)
+    (y0, y1, ay0, ay1), (x0, x1, ax0, ax1) = taps_y, taps_x
     col = (None, slice(None)) + (None,) * (x.ndim - 2)      # weights along w
     row = (slice(None),) + (None,) * (x.ndim - 1)           # weights along h
     rows = x[:, x0] * ax0[col] + x[:, x1] * ax1[col]
