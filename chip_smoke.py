@@ -10,7 +10,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            and export phases check that it did (flags off after
            ``Predictor``, ``train()`` and ``test.test``, each entered with
            TF32 allowed), so every f32 gate holds for what users get.
-2. build   nvcc builds the three kernels from csrc/, in parallel.
+2. build   nvcc builds the five kernel sources in csrc/, in parallel: the
+           tuned kNN and masked max, their general kernels, the probe's
+           row gather.
 3. dataplane  the C++ host data plane (native/src/dataplane.cpp and
            image.cpp): g++'s version, flags and build time; the C path
            bit-equal to the Python readers on this host (its numpy may
@@ -135,13 +137,41 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            Then the test CLI on a (1, 2, 2) grid of four ranks at 64×128,
            V=4, D=16, f32, FLOW_CHUNK_ROWS 16: its PFMs within 1e-4 of the
            one-rank export.
+17. envelope  the kernels over the Pallas kernels' whole envelope and
+           banded PointFlow in training. The general kNN
+           (csrc/window_knn_general.cu) bit-equal to its plain version at
+           (G, k, win) in ENV_KNN and, forced, at the tuned (5, 16, 5), on
+           a 37x53 grid (also against the CPU) and the flow1 grid, on
+           random, lattice and duplicated-level points; the general masked
+           max (csrc/masked_window_max_general.cu) at each of those (G,
+           win), F 10/32/64/160, bf16 and f32, NaN rows and {-0, +0, ±1},
+           kNN and random masks (and the tuned kernel where the rule picks
+           it, F 160 included). Device time of the general kernels at the
+           paper-eval flow grids with k = 8, window 5 and 3, beside the
+           plain versions and the bound, and the tuned kernels' time per
+           request beside the one PERF.md records. Paper-eval requests at
+           MODEL.KNN 8,
+           windows 5 and 3: 3 general kNN launches, 9 masked-max launches
+           (tuned at window 5 with G = 5, by the dispatch rule; general at
+           window 3), no plain version on a CUDA tensor, latency. Card
+           against CPU at 64x128 (Predictor depth with
+           tests/test_full_parity.py's bars, one flow train step with
+           phase_train_parity's) at KNN 8, KNN 8 with window 3, and
+           FLOW_INTERVAL_M 3 with window 3 (G = 7); one train step with
+           FLOW_CHUNK_ROWS 8 (1 + 4 bands). Then train() with
+           FLOW_CHUNK_ROWS 64 at the reference train config: 2 + 4 bands,
+           6 kNN launches per flow step, finite, step time and peak memory
+           beside the unbanded step's. A whole run takes this phase right
+           after train, while CUPTI still returns device times.
 
-Then a JSON line of per-kernel numbers (``launches`` per serving request;
-per train step and validation batch in f32 and in bf16; per exported
-map; per request from converted weights; per banded request), the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
-``--phases dataplane,train,train-bf16,train-dp,export-dtu,weights,parallel-eval``
-(any subset of the seven) runs only those, to try them on the card, and
+Then a JSON line of per-kernel numbers (``launches`` per serving request
+for the tuned kernels, per KNN 8 request for the general ones; per train
+step and validation batch in f32 and in bf16; per exported map; per
+request from converted weights; per banded request; per KNN 8 request
+and banded train step), the nvidia-smi line, and last ``{"ok": true,
+"device": {...}}``. ``--phases
+dataplane,train,train-bf16,train-dp,export-dtu,weights,parallel-eval,envelope``
+(any subset of the eight) runs only those, to try them on the card, and
 prints no result lines. Imports nothing of JAX.
 """
 
@@ -264,14 +294,21 @@ def flow_points(h: int, w: int, dev) -> torch.Tensor:
     return pts.contiguous()
 
 
-def knn_bound(h: int, w: int):
+def knn_bound(h: int, w: int, g: int = G, k: int = K, win: int = WIN):
     """(bytes, flops) of one windowed-kNN call: coords in, idx and mask
     out; 8 flops per (query, in-image candidate)."""
-    p = G * h * w
-    nw = -(-(G * WIN * WIN) // 32)
-    ny = sum(min(h - 1, y + 2) - max(0, y - 2) + 1 for y in range(h))
-    nx = sum(min(w - 1, x + 2) - max(0, x - 2) + 1 for x in range(w))
-    return p * 12 + p * K * 4 + p * nw * 4, 8 * G * G * ny * nx
+    p, r = g * h * w, win // 2
+    nw = -(-(g * win * win) // 32)
+    ny = sum(min(h - 1, y + r) - max(0, y - r) + 1 for y in range(h))
+    nx = sum(min(w - 1, x + r) - max(0, x - r) + 1 for x in range(w))
+    return p * 12 + p * k * 4 + p * nw * 4, 8 * g * g * ny * nx
+
+
+def mwm_bound(z: torch.Tensor, mask: torch.Tensor):
+    """(bytes, flops) of one masked-max call: z and the mask words in, out
+    out; one max per (set bit, channel)."""
+    pop = sum(((mask.long() >> s) & 1) for s in range(32)).sum().item()
+    return 2 * z.numel() * z.element_size() + mask.numel() * 4, pop * z.shape[2]
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -305,7 +342,6 @@ def phase_kernels(dev):
               flush=True)
 
         gen = torch.Generator(device=dev).manual_seed(fi)
-        pop = sum(((mask.long() >> s) & 1) for s in range(32)).sum().item()
         for f in sorted(set(EDGE_F)):
             for dtype in (torch.bfloat16, torch.float32):
                 z = torch.randn(1, G * h * w, f, device=dev, generator=gen).to(dtype)
@@ -318,9 +354,7 @@ def phase_kernels(dev):
                 ms, how = device_ms(lambda: masked_window_max_cuda(z, mask, grid),
                                     "masked_window_max_kernel")
                 pms = time_ms(lambda: masked_window_max_plain(z, mask, grid), reps=3, warmup=1)
-                size = z.element_size()
-                nbytes = 2 * z.numel() * size + mask.numel() * 4
-                bb, by = bound_ms(nbytes, pop * f)
+                bb, by = bound_ms(*mwm_bound(z, mask))
                 print(f"kernels: masked_window_max flow{fi} F={f} {str(dtype)[6:]}: "
                       f"bit-equal; kernel {ms:.4f} ms ({how}), plain {pms:.3f} ms, "
                       f"bound {bb:.4f} ms ({by})", flush=True)
@@ -348,17 +382,27 @@ def special_z(kind: str, b: int, p: int, f: int, seed: int) -> np.ndarray:
                       p=[0.6, 0.05, 0.05, 0.3])
 
 
-def random_mask(b: int, g: int, h: int, w: int, dev, seed: int) -> torch.Tensor:
-    """Selection bitplanes no kNN makes: a quarter of all 128 bits set
-    (out-of-image bits and bits past G·25 included), 10% of the points
-    empty."""
+def random_mask(b: int, g: int, h: int, w: int, dev, seed: int, win: int = WIN) -> torch.Tensor:
+    """Selection bitplanes no kNN makes: a quarter of all bits of the mask
+    words set (out-of-image bits and bits past G·win² included), 10% of
+    the points empty."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    nw = -(-(g * WIN * WIN) // 32)
+    nw = -(-(g * win * win) // 32)
     shape = (b, nw, g, h, w)
     words = [torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen, device=dev,
                            dtype=torch.int64) for _ in range(2)]
     keep = torch.rand((b, 1, g, h, w), generator=gen, device=dev) >= 0.1
     return ((words[0] & words[1]) * keep).to(torch.int32)
+
+
+def point_cases(rng, b: int, g: int, h: int, w: int) -> dict:
+    """Seeded kNN inputs meant to break a kernel: random points, an integer
+    lattice (exact d² ties) and hypothesis levels all at one point."""
+    p = g * h * w
+    return {"random": rng.rand(b, p, 3) * 10,
+            "lattice": rng.randint(0, 3, (b, p, 3)),
+            "duplicates": np.broadcast_to(
+                (rng.rand(b, 1, h, w, 3) * 10), (b, g, h, w, 3)).reshape(b, p, 3)}
 
 
 def phase_adversarial(dev):
@@ -372,12 +416,7 @@ def phase_adversarial(dev):
     grids = [(5, 37, 53), (5, 36, 52), (3, 20, 30), (G,) + FLOWS[0]]
     for gi, (g, h, w) in enumerate(grids):
         grid, p, b = (g, h, w), g * h * w, 2
-        rng = np.random.RandomState(gi)
-        cases = {"random": rng.rand(b, p, 3) * 10,
-                 "lattice": rng.randint(0, 3, (b, p, 3)),
-                 "duplicates": np.broadcast_to(
-                     (rng.rand(b, 1, h, w, 3) * 10), (b, g, h, w, 3)).reshape(b, p, 3)}
-        for case, arr in cases.items():
+        for case, arr in point_cases(np.random.RandomState(gi), b, g, h, w).items():
             pts = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(dev)
             idx, mask = window_knn_cuda(pts, grid)
             torch.cuda.synchronize()
@@ -473,14 +512,24 @@ def phase_gather(dev):
                 probe_launches=wg.launches - g0)
 
 
-def phase_parity():
+def with_model(cfg, overrides):
+    """``cfg`` with MODEL.<key> = value for each of ``overrides``."""
+    for key, value in (overrides or {}).items():
+        cfg.MODEL[key] = value
+    return cfg
+
+
+def phase_parity(overrides=None, what: str = "parity"):
+    """The port at 64x128, V=3, D=16, f32, MODEL.<key> as ``overrides``
+    say, through Predictor: card (kernels) against the CPU (plain
+    versions), same seeded weights, tests/test_full_parity.py's bars."""
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
     from pointmvsnet_tpu_torch.models import build_model
     from pointmvsnet_tpu_torch.predictor import Predictor
     from pointmvsnet_tpu_torch.utils.convert import init_params
 
-    cfg = get_default_cfg()
+    cfg = with_model(get_default_cfg(), overrides)
     cfg.DATA.TEST.NUM_VIRTUAL_PLANE = 16       # IMG_SCALES (0.25, 0.5, 1.0) by default
     images, cams, _ = make_scene_batch(1, 3, 64, 128, 16)
     sd = init_params(build_model(cfg, "cpu"), torch.Generator().manual_seed(0))
@@ -493,10 +542,11 @@ def phase_parity():
     for key in ("coarse_depth_map", "flow1", "flow2", "flow3"):
         d = np.abs(outs["cuda"][key] - outs["cpu"][key])
         report.append(f"{key} max {d.max():.3e} mean {d.mean():.3e}")
-        check(d.max() < 0.05 and d.mean() < 0.005, f"parity {key}: max {d.max()} mean {d.mean()}")
+        check(d.max() < 0.05 and d.mean() < 0.005, f"{what} {key}: max {d.max()} mean {d.mean()}")
     c = float(np.abs(outs["cuda"]["coarse_prob_map"] - outs["cpu"]["coarse_prob_map"]).max())
-    check(c < 0.02, f"parity confidence: max {c}")
-    print(f"parity: f32 card vs cpu at 64x128 V=3 D=16: {'; '.join(report)}; "
+    check(c < 0.02, f"{what} confidence: max {c}")
+    tag = "".join(f" {k} {v}" for k, v in (overrides or {}).items())
+    print(f"{what}: f32 card vs cpu at 64x128 V=3 D=16{tag}: {'; '.join(report)}; "
           f"confidence max {c:.3e}", flush=True)
 
 
@@ -538,17 +588,18 @@ def phase_serve():
     return nk, ne                     # one request's launches (checked equal for all)
 
 
-def _train_step_once(dev, kw, batch, sd, knn_hook=None):
-    """One train step of the default-width model (f32, unmasked loss) from
-    the state_dict ``sd`` on ``dev``; ``knn_hook`` wraps the model's kNN.
-    → (losses, grads, BN statistics), on the CPU."""
+def _train_step_once(dev, kw, batch, sd, knn_hook=None, overrides=None):
+    """One train step of the default-width model (f32, unmasked loss,
+    MODEL.<key> as ``overrides`` say) from the state_dict ``sd`` on
+    ``dev``; ``knn_hook`` wraps the model's kNN. → (losses, grads, BN
+    statistics), on the CPU."""
     import pointmvsnet_tpu_torch.models.pointmvsnet as pmodel
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.models import build_loss_fn, build_model
     from pointmvsnet_tpu_torch.parallel import TrainState, make_train_step, put_batch
     from pointmvsnet_tpu_torch.utils.solver import build_optimizer
 
-    cfg = get_default_cfg()
+    cfg = with_model(get_default_cfg(), overrides)
     cfg.MODEL.NUM_VIRTUAL_PLANE = kw["num_virtual_plane"]
     cfg.MODEL.MASKED_LOSS = False
     model = build_model(cfg, dev)
@@ -615,9 +666,11 @@ def phase_edge_conv_backward():
           f"gradients within 1e-4 of their max |g| (largest: {'; '.join(report)})", flush=True)
 
 
-def phase_train_parity():
-    """One train step of the default-width model, card against CPU,
-    coarse-only and with both flows. The card's kNN kernel gets the CPU
+def phase_train_parity(overrides=None, n_knn: int = 2, what: str = "train-parity"):
+    """One train step of the default-width model (MODEL.<key> as
+    ``overrides`` say), card against CPU, coarse-only (without
+    ``overrides``) and with both flows, whose ``n_knn`` kNN calls the CPU
+    step records. The card's kNN kernel gets the CPU
     step's kNN input points (on the synthetic lattice a kNN near-tie flips
     under the two devices' ~1e-4 depth differences; the kernel is
     bit-equal to the plain version given the same points). Images with
@@ -638,12 +691,12 @@ def phase_train_parity():
     images, cams, gt = make_scene_batch(2, 3, 64, 128, 16, seed=5)
     images = (images + 3.0 * np.random.RandomState(7).randn(*images.shape)).astype(np.float32)
     batch = {"images": images, "cams": cams, "gt_depth": gt[..., None]}
-    cfg = get_default_cfg()
+    cfg = with_model(get_default_cfg(), overrides)
     sd = init_params(build_model(cfg, "cpu"), torch.Generator().manual_seed(0))
     n_head = len(cfg.MODEL.FLOW_CHANNELS)
     shift_invariant = ("vol_conv.convs.7.conv.bias",
                        f"point_flow.head.layers.{n_head - 1}.linear.bias")
-    for is_flow in (False, True):
+    for is_flow in ((True,) if overrides else (False, True)):
         kw = dict(is_flow=is_flow, img_scales=(0.25, 0.5), inter_scales=(0.75, 0.375),
                   num_virtual_plane=16)
         points = []
@@ -657,13 +710,13 @@ def phase_train_parity():
         def replay(orig):
             return lambda pts, *args: orig(points.pop(0).to(pts.device), *args)
 
-        cpu = _train_step_once("cpu", kw, batch, sd, record)
-        check(len(points) == (2 if is_flow else 0), f"{len(points)} kNN calls on the CPU")
-        card = _train_step_once("cuda", kw, batch, sd, replay)
+        cpu = _train_step_once("cpu", kw, batch, sd, record, overrides)
+        check(len(points) == (n_knn if is_flow else 0), f"{len(points)} kNN calls on the CPU")
+        card = _train_step_once("cuda", kw, batch, sd, replay, overrides)
         check(not points, "the card step did not run its kNN")
         for k, v in cpu[0].items():
             check(np.isfinite(card[0][k]) and abs(card[0][k] - v) <= 1e-4 * abs(v),
-                  f"train-parity loss {k}: card {card[0][k]} cpu {v}")
+                  f"{what} loss {k}: card {card[0][k]} cpu {v}")
         largest = max(float(g.abs().max()) for g in cpu[1].values())
         rel = 0.5 if is_flow else 1e-4
         gaps = []
@@ -671,17 +724,18 @@ def phase_train_parity():
             tg = card[1][name]
             if name in shift_invariant:
                 check(max(float(g.abs().max()), float(tg.abs().max())) < 1e-5 * largest,
-                      f"train-parity {name}: not ~0")
+                      f"{what} {name}: not ~0")
                 continue
             # parameters no output uses have zero gradients on both sides
             gap = float((tg - g).abs().max()) / max(float(g.abs().max()), 1e-30)
-            check(gap <= rel, f"train-parity grad {name}: max |Δg| {gap:.3e} of max |g|")
+            check(gap <= rel, f"{what} grad {name}: max |Δg| {gap:.3e} of max |g|")
             gaps.append((gap, name))
         gaps.sort(reverse=True)
         sdiff = max(float((card[2][n] - v).abs().max()) for n, v in cpu[2].items())
-        check(sdiff <= 1e-5, f"train-parity BN statistics: max |Δ| {sdiff:.3e}")
-        print(f"train-parity: {'flows on' if is_flow else 'coarse-only'} step at 64x128 "
-              f"V=3 D=16 B=2 f32, card vs cpu: losses "
+        check(sdiff <= 1e-5, f"{what} BN statistics: max |Δ| {sdiff:.3e}")
+        tag = "".join(f" {k} {v}" for k, v in (overrides or {}).items())
+        print(f"{what}: {'flows on' if is_flow else 'coarse-only'} step at 64x128 "
+              f"V=3 D=16 B=2 f32{tag}, {n_knn if is_flow else 0} kNN calls, card vs cpu: losses "
               f"{ {k: round(v, 6) for k, v in card[0].items() if k.endswith('loss')} }; "
               f"{len(cpu[1])} gradients within {rel:g} of their max |g| (largest "
               f"{', '.join(f'{n} {v:.2e}' for v, n in gaps[:3])}; "
@@ -1693,9 +1747,7 @@ def time_kernel_calls(calls, shapes: dict) -> dict:
                 ms, how = cupti_ms(lambda: masked_window_max_cuda(z, mask, grid),
                                    "masked_window_max_kernel")
                 pms = time_ms(lambda: masked_window_max_plain(z, mask, grid), reps=2, warmup=1)
-                pop = sum(((mask.long() >> s) & 1) for s in range(32)).sum().item()
-                shapes[key] = (ms, pms, *bound_ms(2 * z.numel() * z.element_size()
-                                                   + mask.numel() * 4, pop * z.shape[2]), how)
+                shapes[key] = (ms, pms, *bound_ms(*mwm_bound(z, mask)), how)
         else:
             continue
         totals[key[0]] = [t + x for t, x in zip(totals[key[0]], shapes[key][:3])]
@@ -2190,6 +2242,335 @@ def phase_dataplane():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# (G, k, window) of the general kNN's checks: the Pallas kernel's own tests'
+# shapes, MODEL.KNN 8, FLOW_INTERVAL_M 3 (G = 7) and G = 14 (the most levels
+# window 3 holds) at window 3, the corner bound k = G·(win/2+1)² at window
+# 5, the widest window
+ENV_KNN = [(3, 6, 3), (5, 12, 5), (5, 8, 5), (7, 8, 3), (14, 16, 3), (5, 45, 5), (1, 36, 11)]
+ENV_F = (10, 32, 64, 160)
+ENV_GRIDS = [(37, 53), FLOWS[0]]     # no multiple of either kernel's tile; flow1
+ENV_K = 8                            # MODEL.KNN of the timed shapes and the requests
+# MODEL.<key> of the card-vs-CPU parity cases
+ENV_PARITY = [{"KNN": 8}, {"KNN": 8, "KNN_WINDOW": 3}, {"FLOW_INTERVAL_M": 3, "KNN_WINDOW": 3}]
+ENV_BAND_CR = 64                     # FLOW_CHUNK_ROWS of the banded train step at 640x512
+# the tuned kernels' per-request device time and the unbanded f32 train
+# step as PERF.md records them (NVIDIA H100 80GB HBM3, 700 W)
+RECORDED_REQUEST_MS = {"window_knn": 0.4184, "masked_window_max": 1.12438}
+UNBANDED_STEP = "779.0-807.6 ms, 46.88 GiB"
+
+
+def reset_launches() -> None:
+    from pointmvsnet_tpu_torch.ops import edge, knn
+    for mod in (knn, edge):
+        mod.launches = 0
+        mod.launches_by.update(tuned=0, general=0)
+
+
+def launch_counts() -> dict:
+    from pointmvsnet_tpu_torch.ops import edge, knn
+    return {"window_knn": dict(knn.launches_by), "masked_window_max": dict(edge.launches_by)}
+
+
+class forbid_plain_on_cuda:
+    """Inside the block a plain kNN or masked max given a CUDA tensor
+    fails the run: on the card the model's path runs the kernels."""
+
+    def __enter__(self):
+        from pointmvsnet_tpu_torch.ops import edge, knn
+        self.saved = [(knn, "window_knn", knn.window_knn),
+                      (edge, "masked_window_max_plain", edge.masked_window_max_plain)]
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, self._guard(attr, fn))
+
+    @staticmethod
+    def _guard(attr, fn):
+        def call(t, *args, **kwargs):
+            check(not t.is_cuda, f"the plain {attr} ran on a CUDA tensor on the model's path")
+            return fn(t, *args, **kwargs)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def envelope_kernels(dev) -> dict:
+    """The general kernels against their plain versions, bit for bit, on
+    the card and (small grids) on the CPU: the kNN at every ENV_KNN shape
+    (and forced at the tuned kernel's (5, 16, 5)) on ENV_GRIDS and
+    ``point_cases``; the masked max at every (G, window) of those, F
+    ENV_F, bf16 and f32, NaN rows and {-0, +0, ±1}, kNN and random masks
+    (and the tuned kernel where the rule picks it, F 160 included). →
+    {"window_knn": max |Δidx|, "masked_window_max": max |Δ| off NaN}."""
+    from pointmvsnet_tpu_torch.ops import edge, knn
+
+    err = {"window_knn": 0.0, "masked_window_max": 0.0}
+    masks, n_knn, n_mwm = {}, 0, 0
+    for g, k, win in ENV_KNN + [(5, 16, 5)]:
+        for small, (h, w) in zip((True, False), ENV_GRIDS):
+            grid, b = (g, h, w), 2 if small else 1
+            rng = np.random.RandomState(g * 1000 + k * 10 + win)
+            for case, arr in point_cases(rng, b, g, h, w).items():
+                pts = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(dev)
+                before = knn.launches_by["general"]
+                idx, mask = knn.window_knn_cuda(pts, grid, k, win, variant="general")
+                torch.cuda.synchronize()
+                check(knn.launches_by["general"] == before + 1, "the general kNN did not count")
+                ref = knn.window_knn(pts, grid, k, win, with_mask=True)
+                ok = torch.equal(idx, ref[0]) and torch.equal(mask, ref[1])
+                if small:
+                    cpu = knn.window_knn(pts.cpu(), grid, k, win, with_mask=True)
+                    ok = ok and torch.equal(idx.cpu(), cpu[0]) and torch.equal(mask.cpu(), cpu[1])
+                check(ok, f"envelope: general window_knn G={g} k={k} win={win} {case} grid "
+                          f"{grid}: kernel != plain")
+                err["window_knn"] = max(err["window_knn"],
+                                        float((idx.long() - ref[0].long()).abs().max()))
+                n_knn += 1
+                if small and case == "random":
+                    masks.setdefault((g, win), mask)
+    h, w = ENV_GRIDS[0]
+    for (g, win), kmask in masks.items():
+        grid, p, b = (g, h, w), g * h * w, 2
+        for mcase, m in (("knn", kmask), ("random", random_mask(b, g, h, w, dev, g + win, win))):
+            for f in ENV_F:
+                for kind in ("nan", "zeros"):
+                    z32 = torch.from_numpy(special_z(kind, b, p, f, g * 100 + f)).to(dev)
+                    for dtype in (torch.bfloat16, torch.float32):
+                        z = z32.to(dtype)
+                        ref = edge.masked_window_max_plain(z, m, grid, win)
+                        cpu = (edge.masked_window_max_plain(z.cpu(), m.cpu(), grid, win)
+                               if f == 10 and mcase == "knn" else ref.cpu())
+                        tuned = edge.kernel_variant(g, win, f, dtype, b) == "tuned"
+                        for variant in ("general", "tuned") if tuned else ("general",):
+                            out = edge.masked_window_max_cuda(z, m, grid, win, variant=variant)
+                            torch.cuda.synchronize()
+                            check(same_bits(out, ref) and same_bits(out.cpu(), cpu),
+                                  f"envelope: {variant} masked_window_max {kind} {mcase}-mask "
+                                  f"grid {grid} win={win} F={f} {dtype}: kernel != plain")
+                            d = (out.float() - ref.float()).abs()
+                            err["masked_window_max"] = max(err["masked_window_max"],
+                                                           float(d[~torch.isnan(d)].max()))
+                            n_mwm += 1
+                        if kind == "nan":
+                            check(bool(torch.isnan(ref).any()), "no NaN reached the output")
+                        elif mcase == "knn":
+                            zero = ref[ref == 0]
+                            check(bool(torch.signbit(zero).any())
+                                  and bool((~torch.signbit(zero)).any()),
+                                  f"the ±0 case at G={g} win={win} produced only one zero")
+    print(f"envelope: general window_knn bit-equal to the plain version in {n_knn} cases "
+          f"((G, k, win) {ENV_KNN} and (5, 16, 5) forced; grids {ENV_GRIDS}; random, integer "
+          f"lattice, duplicated levels; the {ENV_GRIDS[0]} grid against the CPU too); "
+          f"masked_window_max in {n_mwm} cases (general at every (G, win) {sorted(masks)}, "
+          f"tuned where the rule picks it; F {ENV_F}; NaN rows, {{-0, +0, ±1}}; kNN and random "
+          f"masks; bf16, f32; F=10 against the CPU too)", flush=True)
+    return err
+
+
+def envelope_timing(dev) -> dict:
+    """Device time (CUPTI) of the general kernels at the paper-eval flow
+    grids with k = ENV_K, window 5 and 3 (the masked max forced to the
+    general kernel at window 5), beside the plain versions and the bound;
+    the tuned kernels' per-request time at k = 16 beside the recorded one. →
+    {(kernel, window): [ms, plain_ms, bound_ms] per request, with the
+    bound's kind and the time's source}."""
+    from pointmvsnet_tpu_torch.ops import edge, knn
+
+    per: dict = {}
+
+    def add(key, n, ms, pms, bb, by, how):
+        t = per.setdefault(key, [0.0, 0.0, 0.0, set(), set()])
+        t[0] += n * ms; t[1] += n * pms; t[2] += n * bb; t[3].add(by); t[4].add(how)
+
+    for fi, (h, w) in enumerate(FLOWS, 1):
+        grid = (G, h, w)
+        pts = flow_points(h, w, dev)
+        gen = torch.Generator(device=dev).manual_seed(fi)
+        zs = {f: torch.randn(1, G * h * w, f, device=dev, generator=gen).bfloat16()
+              for f in sorted(set(EDGE_F))}
+        _, mask16 = knn.window_knn_cuda(pts, grid)
+        ms, how = cupti_ms(lambda: knn.window_knn_cuda(pts, grid), "window_knn_kernel")
+        add(("window_knn", 5), 1, ms, 0.0, 0.0, "bytes", how)
+        for f, z in zs.items():
+            ms, how = cupti_ms(lambda: edge.masked_window_max_cuda(z, mask16, grid),
+                               "masked_window_max_kernel")
+            add(("masked_window_max", 5), EDGE_F.count(f), ms, 0.0, 0.0, "bytes", how)
+        for win in (5, 3):
+            idx, mask = knn.window_knn_cuda(pts, grid, ENV_K, win)
+            torch.cuda.synchronize()
+            ref = knn.window_knn(pts, grid, ENV_K, win, with_mask=True)
+            check(torch.equal(idx, ref[0]) and torch.equal(mask, ref[1]),
+                  f"envelope: window_knn flow{fi} k={ENV_K} win={win}: kernel != plain")
+            ms, how = cupti_ms(lambda: knn.window_knn_cuda(pts, grid, ENV_K, win),
+                               "window_knn_general_kernel")
+            pms = time_ms(lambda: knn.window_knn(pts, grid, ENV_K, win, with_mask=True),
+                          reps=3, warmup=1)
+            bb, by = bound_ms(*knn_bound(h, w, G, ENV_K, win))
+            add(("window_knn_general", win), 1, ms, pms, bb, by, how)
+            line = [f"window_knn_general {ms:.4f} ms ({how}), plain {pms:.3f}, bound {bb:.4f} "
+                    f"({by})"]
+            for f, z in zs.items():
+                out = edge.masked_window_max_cuda(z, mask, grid, win, variant="general")
+                torch.cuda.synchronize()
+                check(same_bits(out, edge.masked_window_max_plain(z, mask, grid, win)),
+                      f"envelope: masked_window_max flow{fi} win={win} F={f}: kernel != plain")
+                ms, how = cupti_ms(lambda: edge.masked_window_max_cuda(
+                    z, mask, grid, win, variant="general"), "masked_window_max_general_kernel")
+                pms = time_ms(lambda: edge.masked_window_max_plain(z, mask, grid, win),
+                              reps=3, warmup=1)
+                bb, by = bound_ms(*mwm_bound(z, mask))
+                add(("masked_window_max_general", win), EDGE_F.count(f), ms, pms, bb, by, how)
+                line.append(f"masked_window_max_general F={f} bf16 {ms:.4f} ms ({how}), plain "
+                            f"{pms:.3f}, bound {bb:.4f} ({by})")
+            print(f"envelope: flow{fi} grid {grid} k={ENV_K} win={win}: {'; '.join(line)}",
+                  flush=True)
+    for (name, win), t in sorted(per.items()):
+        base = (f" (recorded: {RECORDED_REQUEST_MS[name]} ms; tuned, k=16)"
+                if name in RECORDED_REQUEST_MS
+                else f", plain {t[1]:.1f} ms, bound {t[2]:.5f} ms ({'+'.join(sorted(t[3]))})")
+        print(f"envelope: per paper-eval request (flow1-3, F=(32,32,64) bf16) {name} win={win}: "
+              f"{t[0]:.5f} ms ({'+'.join(sorted(t[4]))}){base}; {smi_line()}", flush=True)
+    return per
+
+
+def envelope_requests() -> dict:
+    """Paper-eval requests (640x512, V=5, D=96, bf16) at MODEL.KNN 8,
+    window 5 and window 3: 3 kNN launches (general) and 9 masked-max
+    launches (tuned at window 5, G = 5 by the dispatch rule; general at
+    window 3) per request, no plain version on a CUDA tensor, finite
+    maps; latency, host clock. → {window: launches by kernel and variant}."""
+    import gc
+
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
+    from pointmvsnet_tpu_torch.predictor import Predictor
+
+    res = {}
+    for win in (5, 3):
+        cfg = with_model(get_default_cfg(), {"DTYPE": "bfloat16", "KNN": ENV_K,
+                                             "KNN_WINDOW": win})
+        h, w = cfg.DATA.TEST.IMG_HEIGHT, cfg.DATA.TEST.IMG_WIDTH
+        v, d = cfg.DATA.TEST.NUM_VIEW, cfg.DATA.TEST.NUM_VIRTUAL_PLANE
+        images, cams, _ = make_scene_batch(1, v, h, w, d, seed=0)
+        pred = Predictor(cfg, device="cuda")
+        pred(images[0], cams[0])
+        lat = []
+        want = {"window_knn": {"tuned": 0, "general": 3},
+                "masked_window_max": {"tuned": 9 if win == 5 else 0,
+                                      "general": 0 if win == 5 else 9}}
+        for r in range(2):
+            reset_launches()
+            with forbid_plain_on_cuda():
+                t0 = time.perf_counter()
+                out = pred(images[0], cams[0])
+                lat.append((time.perf_counter() - t0) * 1e3)
+            got = launch_counts()
+            check(got == want, f"envelope: KNN {ENV_K} win {win} request {r}: launches {got}, "
+                               f"want {want}")
+            check(out["depth"].shape == (h, w) and all(np.isfinite(a).all() for a in out.values()),
+                  f"envelope: KNN {ENV_K} win {win} request {r}: bad or non-finite maps")
+        res[win] = got
+        print(f"envelope: paper-eval request {w}x{h} V={v} D={d} bf16 MODEL.KNN {ENV_K} "
+              f"KNN_WINDOW {win}: launches {got}, no plain version on a CUDA tensor, finite "
+              f"maps; latency ms {[round(t, 1) for t in lat]} (host clock); {smi_line()}",
+              flush=True)
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def envelope_banded_train(dev, per_train=None) -> dict:
+    """train() at the reference config (640x512, V=3, D=48, B=4, f32) with
+    FLOW_CHUNK_ROWS ENV_BAND_CR for 2 coarse-only and 2 flow steps with
+    their validation (as the train phase, so that the masked flow losses
+    see pixels), then 3 timed flow steps: 2 + 4 bands, so 6 kNN launches
+    per step and none of the masked max; finite losses and parameters;
+    step time and peak memory beside the unbanded step's."""
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.dataset.build import build_data_loader
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
+    from pointmvsnet_tpu_torch.models import build_loss_fn
+    from pointmvsnet_tpu_torch.parallel import make_train_step, put_batch
+    from pointmvsnet_tpu_torch.train import train
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_band_")
+    try:
+        cfg = with_model(get_default_cfg(), {"FLOW_CHUNK_ROWS": ENV_BAND_CR})
+        h, w, d = 512, 640, cfg.DATA.TRAIN.NUM_VIRTUAL_PLANE
+        make_synthetic_dtu(os.path.join(work, "dtu"), scans=[2, 3, 5], num_views=3, height=h,
+                           width=w, num_depth=d)
+        for split in ("TRAIN", "VAL"):
+            cfg.DATA[split].ROOT_DIR = os.path.join(work, "dtu")
+        cfg.SCHEDULER.INIT_EPOCH = 1
+        cfg.SCHEDULER.MAX_EPOCH = 2
+        bands = [n_bands(int(h * s), ENV_BAND_CR) for s in cfg.MODEL.TRAIN.IMG_SCALES]
+        n_knn, n_edge = sum(bands), len(cfg.MODEL.EDGE_CHANNELS) * sum(bands)
+        reset_launches()
+        state = train(cfg, os.path.join(work, "out"), max_steps_per_epoch=2, device="cuda")
+        torch.cuda.synchronize()
+        got = launch_counts()
+        # 2 flow steps and 1 flow validation batch, banded alike
+        want = {"window_knn": {"tuned": 3 * n_knn, "general": 0},
+                "masked_window_max": {"tuned": n_edge, "general": 0}}
+        check(state.step == 4 and state.optimizer.skipped_steps == 0 and got == want,
+              f"envelope banded train(): step {state.step}, skipped "
+              f"{state.optimizer.skipped_steps}, launches {got}, want {want}")
+        kw = dict(is_flow=True, img_scales=tuple(cfg.MODEL.TRAIN.IMG_SCALES),
+                  inter_scales=tuple(cfg.MODEL.TRAIN.INTER_SCALES),
+                  num_virtual_plane=cfg.MODEL.NUM_VIRTUAL_PLANE)
+        step = make_train_step(build_loss_fn(cfg), kw)
+        batch = put_batch(next(iter(build_data_loader(cfg, "train"))), torch.device("cuda"))
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            reset_launches()
+            t0 = time.perf_counter()
+            state, losses = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = launch_counts()
+            check(got["window_knn"] == {"tuned": n_knn, "general": 0}
+                  and sum(got["masked_window_max"].values()) == 0,
+                  f"envelope banded step: launches {got}, want {n_knn} kNN")
+            check(all(np.isfinite(float(v)) for v in losses.values()), f"losses {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(state.optimizer.skipped_steps == 0
+              and all(torch.isfinite(p).all() for p in state.model.parameters()),
+              "envelope banded step: skipped a step or non-finite parameters")
+        unbanded = (f"this run's unbanded step ms {[round(t, 1) for t in per_train['step_ms']]}, "
+                    f"{per_train['peak_gib']:.2f} GiB; " if per_train else "")
+        print(f"envelope: banded train step {w}x{h} V=3 D={d} B={cfg.TRAIN.BATCH_SIZE} f32 "
+              f"FLOW_CHUNK_ROWS {ENV_BAND_CR} ({'+'.join(map(str, bands))} bands): kNN launches "
+              f"per step {n_knn}, masked-max 0; step ms {[round(t, 1) for t in times]}, "
+              f"max_memory_allocated {peak:.2f} GiB; {unbanded}unbanded as recorded: "
+              f"{UNBANDED_STEP}; losses "
+              f"{ {k: round(float(v), 4) for k, v in losses.items() if k.endswith('loss')} }; "
+              f"{smi_line()}", flush=True)
+        return dict(launches=n_knn, step_ms=times, peak_gib=peak)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_envelope(dev, per_train=None) -> dict:
+    """The kernels over the Pallas kernels' whole envelope, and banded
+    PointFlow in training (see the module docstring). → the numbers of the
+    general kernels' rows of the kernels line."""
+    t0 = time.perf_counter()
+    err = envelope_kernels(dev)
+    timing = envelope_timing(dev)
+    requests = envelope_requests()
+    for overrides in ENV_PARITY:
+        phase_parity(overrides, "envelope parity")
+        phase_train_parity(overrides, 2, "envelope train-parity")
+    phase_train_parity({"FLOW_CHUNK_ROWS": 8}, 1 + 4, "envelope banded train-parity")
+    banded = envelope_banded_train(dev, per_train)
+    print(f"envelope: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(err=err, timing=timing, requests=requests, banded=banded)
+
+
 def profile_call(fn, what: str, top: int = 12):
     """One more call of ``fn`` under torch.profiler: device busy time (the
     sum of the GPU kernels and copies), its share of the call's wall time,
@@ -2220,7 +2601,7 @@ def profile_call(fn, what: str, top: int = 12):
 
 PHASES = ["env", "build", "dataplane", "kernels", "adversarial", "gather", "parity", "serve",
           "train", "train-parity", "export", "export-dtu", "weights", "fusion-scan", "train-bf16",
-          "train-dp", "parallel-eval"]
+          "train-dp", "parallel-eval", "envelope"]
 
 
 def main(argv=None) -> int:
@@ -2228,8 +2609,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
                    help="comma-separated subset of dataplane,train,train-bf16,train-dp,"
-                        "export-dtu,weights,parallel-eval to try on the card (prints no result "
-                        "lines); default: every phase")
+                        "export-dtu,weights,parallel-eval,envelope to try on the card (prints no "
+                        "result lines); default: every phase")
     args = p.parse_args(argv)
     phases = ["env", "build"] + args.phases.split(",") if args.phases else PHASES
     if not torch.cuda.is_available():
@@ -2274,6 +2655,8 @@ def main(argv=None) -> int:
                 phase_train_dp(dev)
             elif name == "parallel-eval":
                 phase_parallel_eval(dev)
+            elif name == "envelope":
+                phase_envelope(dev, per_train)
             elif name in ("weights", "export-dtu"):
                 work = tempfile.mkdtemp(prefix="chip_smoke_partial_")
                 try:
@@ -2294,6 +2677,9 @@ def main(argv=None) -> int:
     try:
         weight = os.path.join(work, "trained.pt")
         per_train = phase_train(dev, weight)
+        # before the phases that spawn processes: late in a run CUPTI at
+        # times returns no device time (PERF.md), and this phase times kernels
+        env = phase_envelope(dev, per_train)
         phase_edge_conv_backward()
         phase_train_parity()
         per_map = phase_export(weight, work)
@@ -2332,6 +2718,39 @@ def main(argv=None) -> int:
             "banded_request_flow_chunk_rows": PE_BAND_CR,
             "ms_per_banded_request": round(per_band[name]["ms"], 5),
             "ms_per_banded_request_source": per_band[name]["source"],
+            "variant": "tuned",
+            "ms_per_request_envelope_phase": round(env["timing"][(name, 5)][0], 5),
+            "launches_per_knn8_request": {w: r[name]["tuned"]
+                                          for w, r in env["requests"].items()},
+            "launches_per_banded_train_step": env["banded"]["launches"] if name == "window_knn"
+            else 0,
+            "banded_train_flow_chunk_rows": ENV_BAND_CR,
+        })
+    # the general kernels: launches per KNN 8 request at the window that runs
+    # them (kNN: window 5; masked max: window 3, since the rule keeps window 5
+    # with G = 5 on the tuned kernel), and time, plain time and bound per
+    # such request at the paper-eval flow grids
+    for name, line, win in [("window_knn", "knn.py:40", 5), ("masked_window_max", "edge.py:73", 3)]:
+        ms, pms, bb, by, how = env["timing"][(f"{name}_general", win)]
+        rows.append({
+            "name": f"{name}_general", "route": "cuda",
+            "source": f"pointmvsnet_tpu_torch/csrc/{name}_general.cu",
+            "replaces": f"pointmvsnet_tpu/ops/pallas/{line}",
+            "launches": env["requests"][win][name]["general"],
+            "max_abs_err": env["err"][name],
+            "ms": round(ms, 5), "plain_ms": round(pms, 4), "bound_ms": round(bb, 5),
+            "bound_by": "bytes" if by == {"bytes"} else "operations",
+            "library_ms": None,
+            "variant": "general",
+            "work": f"one forward: flow1-3 grids, k={ENV_K}, window {win}, bf16, F=(32,32,64) "
+                    f"per flow",
+            "ms_source": "+".join(sorted(how)),
+            "launches_per": f"paper-eval request at MODEL.KNN {ENV_K}, KNN_WINDOW {win}",
+            "launches_per_knn8_request": {w: r[name]["general"]
+                                          for w, r in env["requests"].items()},
+            "launches_per_banded_train_step": 0,
+            "ms_per_request_window": {w: round(t[0], 5) for (n, w), t in env["timing"].items()
+                                      if n == f"{name}_general"},
         })
     rows.append({
         "name": "window_gather", "route": "cuda",

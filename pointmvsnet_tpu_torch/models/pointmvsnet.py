@@ -8,17 +8,18 @@ the input. Each flow iteration at ``img_scales[i]`` upsamples the previous
 depth and refines it by the expected residual over 2m+1 hypotheses per
 pixel, ``inter_scales[i]`` depth intervals apart along the viewing ray.
 
-At eval, ``flow_chunk_rows`` > 0 refines each flow map in row bands of
-that height with an 8-row halo (``banded_point_flow``, the counterpart of
-the JAX package's ``PointFlow``), and a band group shares the bands of one
-map out over its ranks; a view group shares out the cost volume's views
-(``parallel/view_parallel.py``). ``flow_chunk_rows`` -1 (the JAX package's
-AUTO height, chosen for the TPU's VMEM) and 0 are unbanded.
+``flow_chunk_rows`` > 0 refines each flow map in row bands of that
+height with an 8-row halo (``banded_point_flow``, the counterpart of the
+JAX package's ``PointFlow``), at eval and in training; at eval a band
+group shares the bands of one map out over its ranks, and a view group
+shares out the cost volume's views (``parallel/view_parallel.py``).
+``flow_chunk_rows`` -1 (the JAX package's AUTO height, chosen for the
+TPU's VMEM, and unbanded in its training) and 0 are unbanded.
 ``model.train()`` selects the training forward of the JAX package's
-``train=True``: batch statistics in every BatchNorm, the kNN indices alone
-and EdgeConv's gather path (the masked-max fast path is eval only), the
-image pyramid run anew for every flow iteration, no gradient into the kNN
-or ``flowN_input``, and no bands.
+``train=True``: batch statistics in every BatchNorm (per band where the
+map is banded), the kNN indices alone and EdgeConv's gather path (the
+masked-max fast path is eval only), the image pyramid run anew for every
+flow iteration, and no gradient into the kNN or ``flowN_input``.
 """
 
 from __future__ import annotations
@@ -173,22 +174,30 @@ def banded_point_flow(flow: PointFlow, levels: List[torch.Tensor],
                       cur_depth: torch.Tensor, step: torch.Tensor, chunk_rows: int,
                       band_group=None) -> torch.Tensor:
     """``flow`` over ``cur_depth`` (B, h, w) in row bands of ``chunk_rows``
-    rows at eval (the JAX package's ``PointFlow.__call__``): each band is
-    refined with HALO rows above and below, clamped into the map so that
-    every band has the same height cr + 2·HALO, and its own cr rows are
-    kept. The halo covers the reach of the three EdgeConvs and the kNN
-    window, so under eval BatchNorm the result equals the unbanded pass;
-    GroupNorm's statistics over a band's points move it (~1e-2).
-    Unbanded in training, for ``chunk_rows`` ≤ 0, or where the map is too
-    short to band (h ≤ cr + 2·HALO).
+    rows (the JAX package's ``PointFlow.__call__``): each band is refined
+    with HALO rows above and below, clamped into the map so that every
+    band has the same height cr + 2·HALO, and its own cr rows are kept.
+    The halo covers the reach of the three EdgeConvs and the kNN window,
+    so under eval BatchNorm the result equals the unbanded pass;
+    GroupNorm's statistics over a band's points move it (~1e-2). In
+    training the bands are refined one after another, each BatchNorm takes
+    that band's batch statistics (over every rank's batch under data
+    parallelism) and blends its running statistics once per band, in band
+    order, as flax's mutable ``batch_stats`` do over repeated calls; the
+    loss reaches a band through its kept rows alone. Unbanded for
+    ``chunk_rows`` ≤ 0 or where the map is too short to band
+    (h ≤ cr + 2·HALO).
 
-    ``band_group``: rank r of the group's n ranks refines bands
+    ``band_group`` (eval only; training raises, as the JAX package trains
+    on no band mesh): rank r of the group's n ranks refines bands
     [r·⌈P/n⌉, (r+1)·⌈P/n⌉) of the P bands (what the JAX package's band
     sharding gives each device, padded where n does not divide P), and
     the kept rows of all ranks are gathered in band order."""
     b, h, w = cur_depth.shape
     cr = chunk_rows
-    if flow.training or cr <= 0 or h <= cr + 2 * HALO:
+    if flow.training and band_group is not None:
+        raise ValueError("band-parallel flow is eval-only: train with no band group")
+    if cr <= 0 or h <= cr + 2 * HALO:
         return flow(levels, cams_levels, ref_cam, cur_depth, step)
     if h % cr or cr % 8:
         raise ValueError(f"FLOW_CHUNK_ROWS={cr} must divide the flow height {h} and be a "

@@ -31,8 +31,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry → argtypes (pointers and the stream as c_void_p, sizes as c_int)
 SIGNATURES = {
     "window_knn": {"window_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "window_knn_general": {
+        "window_knn_general": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "masked_window_max": {
         "masked_window_max": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "masked_window_max_general": {
+        "masked_window_max_general": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "window_gather": {"window_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
 

@@ -4,9 +4,12 @@ counterpart of ``pointmvsnet_tpu/ops/knn.py`` (``window_knn``,
 ``ops/pallas/knn.py``.
 
 ``window_knn_mask`` (eval) and ``window_knn_idx`` (training) dispatch on
-the tensor's device: a CUDA tensor goes to the hand-written kernel
-``csrc/window_knn.cu`` (``window_knn_cuda``), a CPU tensor to the plain
-version ``window_knn``. Both rank candidates by
+the tensor's device: a CUDA tensor goes to a hand-written kernel
+(``window_knn_cuda``), a CPU tensor to the plain version ``window_knn``.
+The kernels take every shape the plain version takes, as the Pallas
+kernel does: ``kernel_variant`` picks ``csrc/window_knn.cu`` (tuned for
+the paper's k = 16, window 5) or ``csrc/window_knn_general.cu`` (any odd
+window with G·win² ≤ 128 and k ≤ G·(⌊win/2⌋+1)²). All rank candidates by
 the JAX package's packed key, so their indices and masks are bit-equal.
 """
 
@@ -19,18 +22,47 @@ import torch.nn.functional as F
 
 from pointmvsnet_tpu_torch.ops import _cuda
 
-# launches of the CUDA kernel (only ``window_knn_cuda`` increments it)
+# launches of the CUDA kernels, in all and by variant (only
+# ``window_knn_cuda`` increments them)
 launches = 0
+launches_by = {"tuned": 0, "general": 0}
 
 
-def _check_grid(g: int, k: int, window: int) -> None:
-    r = window // 2
+def check_window(g: int, window: int) -> None:
     if window % 2 != 1:
         raise ValueError(f"window must be odd, got {window}")
     if g * window * window > 128:
         raise ValueError("the packed key holds at most 128 candidate ids")
-    if g * (r + 1) ** 2 < k:
+
+
+def _check_grid(g: int, k: int, window: int) -> None:
+    check_window(g, window)
+    if g * (window // 2 + 1) ** 2 < k:
         raise ValueError("not enough in-bounds candidates at the corners")
+
+
+def kernel_variant(g: int, k: int, window: int) -> str:
+    """The CUDA kernel for (G, k, window): "tuned" (``csrc/window_knn.cu``)
+    at k = 16, window 5 (so G ≤ 5), "general"
+    (``csrc/window_knn_general.cu``) at every other shape the plain
+    version takes. Raises where the plain version raises."""
+    _check_grid(g, k, window)
+    return "tuned" if (k, window) == (16, 5) else "general"
+
+
+def check_args(points: torch.Tensor, grid_shape: Tuple[int, int, int], k: int,
+               window: int) -> str:
+    """``window_knn_cuda``'s checks of its arguments, on any device and
+    without a launch → its ``kernel_variant``."""
+    g, h, w = grid_shape
+    if points.dtype != torch.float32 or not points.is_contiguous():
+        raise ValueError("points must be contiguous float32")
+    if points.dim() != 3 or points.shape[1:] != (g * h * w, 3):
+        raise ValueError(f"points {tuple(points.shape)} do not match grid {grid_shape}")
+    variant = kernel_variant(g, k, window)
+    if g * h * w * max(k, 1) >= 2 ** 31:
+        raise ValueError("grid too large for int32 indices")
+    return variant
 
 
 def _int32_bits(v: torch.Tensor) -> torch.Tensor:
@@ -87,31 +119,35 @@ def window_knn(points: torch.Tensor, grid_shape: Tuple[int, int, int], k: int,
 
 
 def window_knn_cuda(points: torch.Tensor, grid_shape: Tuple[int, int, int],
-                    k: int = 16, window: int = 5):
-    """The CUDA kernel: same contract as ``window_knn(..., with_mask=True)``
-    for k = 16, window = 5 and G ≤ 5. Raises on anything it does not take."""
+                    k: int = 16, window: int = 5, variant: str = ""):
+    """The CUDA kernels: same contract as ``window_knn(..., with_mask=True)``
+    for every shape it takes. ``variant`` "general" runs the general kernel
+    at the tuned kernel's shape too (to compare the two); by default
+    ``kernel_variant`` picks. Raises on anything the kernels do not take."""
     global launches
     g, h, w = grid_shape
     if not points.is_cuda:
         raise ValueError("window_knn_cuda takes a CUDA tensor")
-    if points.dtype != torch.float32 or not points.is_contiguous():
-        raise ValueError("points must be contiguous float32")
-    if points.dim() != 3 or points.shape[1:] != (g * h * w, 3):
-        raise ValueError(f"points {tuple(points.shape)} do not match grid {grid_shape}")
-    if (k, window) != (16, 5):
-        raise ValueError("the kernel is built for k=16, window=5")
-    _check_grid(g, k, window)
-    if g * h * w * k >= 2 ** 31:
-        raise ValueError("grid too large for int32 indices")
+    chosen = check_args(points, grid_shape, k, window)
+    variant = variant or chosen
+    if variant not in ("tuned", "general") or (variant == "tuned" and chosen != "tuned"):
+        raise ValueError(f"variant {variant!r} does not take k={k}, window={window}")
     b = points.shape[0]
     nw = -(-(g * window * window) // 32)
     idx = torch.empty((b, g * h * w, k), dtype=torch.int32, device=points.device)
     mask = torch.empty((b, nw, g, h, w), dtype=torch.int32, device=points.device)
-    lib = _cuda.load("window_knn")
-    err = lib.window_knn(points.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                         b, g, h, w, points.device.index, _cuda.stream_of(points))
-    _cuda.check(lib, err, "window_knn")
+    stream = _cuda.stream_of(points)
+    if variant == "tuned":
+        lib = _cuda.load("window_knn")
+        err = lib.window_knn(points.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                             b, g, h, w, points.device.index, stream)
+    else:
+        lib = _cuda.load("window_knn_general")
+        err = lib.window_knn_general(points.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                                     b, g, h, w, k, window, points.device.index, stream)
+    _cuda.check(lib, err, f"window_knn ({variant})")
     launches += 1
+    launches_by[variant] += 1
     return idx, mask
 
 

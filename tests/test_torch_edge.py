@@ -16,7 +16,9 @@ from pointmvsnet_tpu.ops.knn import window_knn as jwindow_knn
 from pointmvsnet_tpu.ops.pallas.edge import masked_window_max as pallas_mwm
 from pointmvsnet_tpu.ops.pallas.edge import masked_window_max_xla
 from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
-from pointmvsnet_tpu_torch.ops.edge import masked_window_max
+from pointmvsnet_tpu_torch.ops.edge import check_args as edge_check_args
+from pointmvsnet_tpu_torch.ops.edge import kernel_variant as edge_kernel_variant
+from pointmvsnet_tpu_torch.ops.edge import masked_window_max, masked_window_max_cuda
 from pointmvsnet_tpu_torch.ops.knn import gather_knn
 from pointmvsnet_tpu_torch.utils.convert import jax_to_torch
 from torch_threads import one_torch_thread  # noqa: F401
@@ -215,3 +217,94 @@ def test_edgeconv_fast_path_propagates_nan(graph, norm):
     for other in (got, gather):
         np.testing.assert_array_equal(np.isnan(other), nan)
         np.testing.assert_allclose(other[~nan], want[~nan], atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------ the kernels' whole envelope
+
+# (G, window, k): masked max shapes off the tuned kernel (window 5, G ≤ 5),
+# with their masks from the kNN at k
+ENVELOPE = [(7, 3, 8), (2, 7, 12)]
+EH, EW = 8, 16
+
+
+@pytest.fixture(scope="module", params=ENVELOPE, ids=lambda s: "G{}-win{}".format(*s[:2]))
+def envelope_graph(request):
+    g, win, k = request.param
+    pts = np.random.RandomState(g * 10 + win).rand(2, g * EH * EW, 3).astype(np.float32) * 10
+    _, mask = jwindow_knn(jnp.asarray(pts), (g, EH, EW), k, win, with_mask=True)
+    return g, win, np.array(mask)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("f", [10, 160])
+def test_envelope_plain_matches_pallas_and_xla(envelope_graph, f, dtype):
+    """The plain masked max, the general kernel's oracle, equal bit for bit
+    to masked_window_max_xla at windows 3 and 7, G 7 and 2, F 10 and 160,
+    f32 and bf16, and to the Pallas kernel in interpret mode at window 3.
+    The Pallas kernel repacks each level's window bits into one 32-bit word
+    (``_repack_mask``), so at window 7 (49 bits) its trace overflows
+    uint32: there the XLA twin is the JAX package's result."""
+    g, win, mask = envelope_graph
+    grid = (g, EH, EW)
+    z = np.random.RandomState(f + g).randn(2, g * EH * EW, f).astype(np.float32)
+    jz = jnp.asarray(z, dtype)
+    zt = torch.from_numpy(z)
+    if dtype == "bfloat16":
+        zt = zt.bfloat16()
+    got = masked_window_max(zt, torch.from_numpy(mask.view(np.int32)), grid, win)
+    assert got.dtype == zt.dtype
+    got = got.float().numpy()
+    _assert_same_bits(got, masked_window_max_xla(jz, jnp.asarray(mask), grid, win))
+    if win * win <= 32:
+        _assert_same_bits(got, pallas_mwm(jz, jnp.asarray(mask), grid, win, interpret=True))
+    else:
+        with pytest.raises(OverflowError):
+            pallas_mwm(jz, jnp.asarray(mask), grid, win, interpret=True)
+
+
+def test_edge_kernel_variant():
+    """Tuned at window 5 and G ≤ 5 while its grid of channel chunks fits
+    65535 blocks (any F, f32 and bf16); general at every other odd window
+    with G·win² ≤ 128, and past the tuned kernel's grid."""
+    for dt in (torch.float32, torch.bfloat16):
+        for g in range(1, 6):
+            for f in (1, 10, 32, 64, 128, 160, 1000):
+                assert edge_kernel_variant(g, 5, f, dt) == "tuned"
+        assert edge_kernel_variant(5, 5, 128, dt, b=65535 // (128 * (4 if dt == torch.float32
+                                                                      else 2) // 64)) == "tuned"
+        assert edge_kernel_variant(5, 5, 160, dt, b=65535) == "general"
+        for win in range(1, 12, 2):
+            for g in range(1, 128 // (win * win) + 1):
+                if win != 5:
+                    assert edge_kernel_variant(g, win, 10, dt) == "general"
+        assert edge_kernel_variant(14, 3, 64, dt) == edge_kernel_variant(128, 1, 7, dt) == "general"
+
+
+@pytest.mark.parametrize("g,win,dtype,match", [
+    (5, 4, torch.float32, "window must be odd"), (6, 5, torch.float32, "128 candidate"),
+    (15, 3, torch.bfloat16, "128 candidate"), (5, 5, torch.float16, "float32 or bfloat16")])
+def test_edge_kernel_variant_raises(g, win, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        edge_kernel_variant(g, win, 8, dtype)
+
+
+def test_edge_check_args_accept_the_envelope():
+    """The CUDA wrapper's argument checks (no launch) accept every window,
+    G and F inside the envelope in f32 and bf16, and reject a mask of the
+    wrong shape or type and a non-contiguous z."""
+    for win in range(1, 12, 2):
+        for g in range(1, 128 // (win * win) + 1):
+            nw = -(-(g * win * win) // 32)
+            mask = torch.zeros(2, nw, g, 2, 3, dtype=torch.int32)
+            for f in (1, 10, 160):
+                for dt in (torch.float32, torch.bfloat16):
+                    z = torch.zeros(2, g * 6, f, dtype=dt)
+                    assert edge_check_args(z, mask, (g, 2, 3), win) == edge_kernel_variant(
+                        g, win, f, dt, 2)
+    z = torch.zeros(1, 7 * 6, 20)
+    mask = torch.zeros(1, 2, 7, 2, 3, dtype=torch.int32)
+    for bad_z, bad_mask in ((z[:, :, ::2], mask), (z, mask.long()), (z, mask[:, :1])):
+        with pytest.raises(ValueError):
+            edge_check_args(bad_z, bad_mask, (7, 2, 3), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        masked_window_max_cuda(z, mask, (7, 2, 3), 3)

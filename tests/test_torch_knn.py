@@ -11,7 +11,8 @@ import torch
 from pointmvsnet_tpu.ops.knn import gather_knn as jgather
 from pointmvsnet_tpu.ops.knn import window_knn as jwindow_knn
 from pointmvsnet_tpu.ops.pallas.knn import pallas_window_knn_mask
-from pointmvsnet_tpu_torch.ops.knn import gather_knn, window_knn, window_knn_mask
+from pointmvsnet_tpu_torch.ops.knn import (check_args, gather_knn, kernel_variant, window_knn,
+                                           window_knn_cuda, window_knn_mask)
 from torch_threads import one_torch_thread  # noqa: F401
 
 B, G, H, W, K, WIN = 2, 5, 16, 24, 16, 5
@@ -80,3 +81,84 @@ def test_dispatch_and_gather(knn_pair):
     np.testing.assert_array_equal(
         gather_knn(torch.from_numpy(feats), torch.from_numpy(tidx)).numpy(),
         np.asarray(jgather(jnp.asarray(feats), jnp.asarray(tidx))))
+
+
+# ------------------------------------------------ the kernels' whole envelope
+
+# (G, H, W, k, window): shapes the Pallas kernel runs that the tuned CUDA
+# kernel (k = 16, window 5) does not; the general kernel takes them
+ENVELOPE = [(3, 8, 8, 6, 3), (5, 8, 16, 12, 5), (7, 8, 16, 8, 3), (1, 8, 16, 36, 11)]
+
+
+@pytest.fixture(scope="module", params=ENVELOPE, ids=lambda s: "G{}-{}x{}-k{}-win{}".format(*s))
+def envelope_pair(request):
+    g, h, w, k, win = request.param
+    pts = np.random.RandomState(g * 100 + k).rand(2, g * h * w, 3).astype(np.float32) * 10
+    tidx, tmask = window_knn(torch.from_numpy(pts), (g, h, w), k, win, with_mask=True)
+    return request.param, pts, tidx.numpy(), tmask.numpy()
+
+
+def test_envelope_plain_matches_jax(envelope_pair):
+    """The plain version, the general kernel's oracle, bit-equal in idx and
+    mask to the JAX package's window_knn at shapes off the tuned kernel."""
+    (g, h, w, k, win), pts, tidx, tmask = envelope_pair
+    jidx, jmask = jwindow_knn(jnp.asarray(pts), (g, h, w), k, win, with_mask=True)
+    assert tidx.shape == (2, g * h * w, k) and tmask.shape[1] == -(-(g * win * win) // 32)
+    np.testing.assert_array_equal(tidx, np.asarray(jidx))
+    np.testing.assert_array_equal(tmask.view(np.uint32), np.asarray(jmask))
+
+
+def test_envelope_plain_matches_pallas_interpret(envelope_pair):
+    (g, h, w, k, win), pts, tidx, tmask = envelope_pair
+    pidx, pmask = pallas_window_knn_mask(jnp.asarray(pts), (g, h, w), k, win,
+                                         interpret=True)
+    np.testing.assert_array_equal(tidx, np.asarray(pidx))
+    np.testing.assert_array_equal(tmask.view(np.uint32), np.asarray(pmask))
+
+
+def envelope_shapes():
+    """Every (G, k, window) the plain version takes."""
+    for win in range(1, 12, 2):
+        for g in range(1, 128 // (win * win) + 1):
+            for k in range(0, g * (win // 2 + 1) ** 2 + 1):
+                yield g, k, win
+
+
+def test_kernel_variant_tuned_only_at_the_paper_shape():
+    assert kernel_variant(5, 16, 5) == "tuned"
+    shapes = list(envelope_shapes())
+    assert len(shapes) > 1000 and max(k for _, k, _ in shapes) == 128
+    tuned = [s for s in shapes if kernel_variant(*s) == "tuned"]
+    assert tuned == [(g, 16, 5) for g in (2, 3, 4, 5)]
+    assert all(kernel_variant(*s) == "general" for s in shapes if s not in tuned)
+
+
+@pytest.mark.parametrize("g,k,win", [(5, 16, 4), (6, 16, 5), (129, 1, 1), (15, 8, 3),
+                                     (1, 10, 5), (3, 13, 3)])
+def test_kernel_variant_raises_as_the_plain_version(g, k, win):
+    """Outside the envelope the rule raises what the plain version raises."""
+    pts = torch.zeros(1, g * 3 * 3, 3)
+    with pytest.raises(ValueError) as plain:
+        window_knn(pts, (g, 3, 3), k, win)
+    with pytest.raises(ValueError) as rule:
+        kernel_variant(g, k, win)
+    assert str(rule.value) == str(plain.value)
+    with pytest.raises(ValueError, match=str(plain.value)):
+        check_args(pts, (g, 3, 3), k, win)
+
+
+def test_check_args_accept_the_envelope():
+    """The CUDA wrapper's argument checks (no launch) accept every shape
+    inside the envelope, and reject a wrong dtype, layout or size."""
+    for g, k, win in envelope_shapes():
+        pts = torch.empty(2, g * 4 * 6, 3)
+        assert check_args(pts, (g, 4, 6), k, win) == kernel_variant(g, k, win)
+    pts = torch.empty(1, 5 * 4 * 6, 3)
+    for bad in (pts.double(), pts[:, ::2], torch.empty(1, 5 * 4 * 6, 4)):
+        with pytest.raises(ValueError):
+            check_args(bad, (5, 4, 6), 16, 5)
+    with pytest.raises(ValueError, match="int32"):
+        check_args(torch.empty(1, 5 * 2 ** 12 * 2 ** 12, 3, device="meta"),
+                   (5, 2 ** 12, 2 ** 12), 26, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        window_knn_cuda(pts, (5, 4, 6), 8, 5)

@@ -8,6 +8,13 @@ both sides give their gradients; the port's step runs its real optimizer,
 whose first RMSprop update (≈ lr·√10·sign(g)) would turn noise in tiny
 gradients into differences, which is why the gradients are compared.
 
+The third case bands the flows as ``MODEL.FLOW_CHUNK_ROWS`` 8 does in
+both packages: flow1's 16 rows are too few to band (≤ 8 + 2·8), flow2's 32
+rows go in 4 bands of 8 kept rows and 24 refined, each band with its own
+BatchNorm batch statistics and its own blend of the running statistics,
+in band order; the JAX step's 5 kNN input point sets feed the port's 5
+kNN calls in order.
+
 Tolerances: losses rtol 1e-4; BN running statistics atol 1e-5; every
 gradient within 1e-4 of its parameter's max |g| in the coarse-only step
 and within 1e-2 with the flows on, except the two biases right before a
@@ -72,7 +79,12 @@ GRAD_BAR = {False: 1e-4, True: 1e-2}          # of max |g|, by is_flow
 SHIFT_INVARIANT = ("vol_conv.convs.7.conv.bias", "point_flow.head.layers.1.linear.bias")
 
 
-def tiny(cfg):
+BAND_ROWS = 8          # FLOW_CHUNK_ROWS of the banded case
+N_KNN = {"coarse": 0, "flow": 2, "banded": 1 + 4}
+
+
+def tiny(cfg, chunk_rows: int = -1):
+    cfg.MODEL.FLOW_CHUNK_ROWS = chunk_rows
     cfg.MODEL.IMG_BASE_CHANNELS = 4
     cfg.MODEL.VOL_BASE_CHANNELS = 4
     cfg.MODEL.EDGE_CHANNELS = (8, 8)
@@ -102,9 +114,9 @@ class ArgmaxRoutedNumpy:
         return getattr(jnp, name)
 
 
-def run_jax(kw, images, cams, gt, flat):
+def run_jax(kw, images, cams, gt, flat, chunk_rows=-1):
     """The JAX step on the batch → (result, the kNN input points)."""
-    jm, jloss, _ = jbuild_model(tiny(jget_default_cfg()))
+    jm, jloss, _ = jbuild_model(tiny(jget_default_cfg(), chunk_rows))
     knn_points = []
 
     def recording_knn(points, *args, **kwargs):
@@ -130,16 +142,18 @@ def run_jax(kw, images, cams, gt, flat):
                 step=int(jnew.step)), knn_points
 
 
-def run_port(kw, images, cams, gt, flat, knn_points):
-    """The port's step on the same batch, its kNN fed ``knn_points``."""
+def run_port(kw, images, cams, gt, flat, knn_points, chunk_rows=-1):
+    """The port's step on the same batch, its kNN fed ``knn_points`` (its
+    own kNN for None)."""
     tknn = tpointmvsnet.window_knn_idx
-    cfg = tiny(get_default_cfg())
+    cfg = tiny(get_default_cfg(), chunk_rows)
     model = build_model(cfg, device="cpu")
     load_jax_variables(model, flat)
     state = TrainState(model, build_optimizer(cfg, dict(model.named_parameters())))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tpointmvsnet, "window_knn_idx",
-                   lambda points, *args: tknn(torch.from_numpy(knn_points.pop(0)), *args))
+        if knn_points is not None:
+            mp.setattr(tpointmvsnet, "window_knn_idx",
+                       lambda points, *args: tknn(torch.from_numpy(knn_points.pop(0)), *args))
         state, losses = make_train_step(build_loss_fn(cfg), kw)(
             state, {"images": torch.tensor(images), "cams": torch.tensor(cams),
                     "gt_depth": torch.tensor(gt)})
@@ -161,14 +175,15 @@ def batch():
     return images.astype(np.float32), cams, gt[..., None], flat
 
 
-@pytest.fixture(scope="module", params=["coarse", "flow"])
+@pytest.fixture(scope="module", params=["coarse", "flow", "banded"])
 def steps(request, batch):
     """→ (JAX result, port result, is_flow)."""
-    is_flow = request.param == "flow"
+    is_flow = request.param != "coarse"
+    cr = BAND_ROWS if request.param == "banded" else -1
     kw = dict(KW, is_flow=is_flow)
-    want, knn_points = run_jax(kw, *batch)
-    assert len(knn_points) == (2 if is_flow else 0)
-    return want, run_port(kw, *batch, knn_points), is_flow
+    want, knn_points = run_jax(kw, *batch, chunk_rows=cr)
+    assert len(knn_points) == N_KNN[request.param]
+    return want, run_port(kw, *batch, knn_points, chunk_rows=cr), is_flow
 
 
 def test_losses(steps):
@@ -209,3 +224,31 @@ def test_bn_running_stats(steps):
     for name, v in want["stats"].items():
         np.testing.assert_allclose(got["stats"][name].numpy(), v.numpy(), atol=1e-5, rtol=0,
                                    err_msg=name)
+
+
+def test_banded_step_differs_from_unbanded(batch):
+    """The bands change the step: the port's banded step (its own kNN)
+    differs from its unbanded one by more than the bars above, in the BN
+    running statistics (four blends of flow2's per-band statistics) and in
+    the gradients; so a port that ignored the bands in training would fail
+    the banded case."""
+    kw = dict(KW, is_flow=True)
+    banded = run_port(kw, *batch, None, chunk_rows=BAND_ROWS)
+    plain = run_port(kw, *batch, None, chunk_rows=0)
+    stats = max(float((banded["stats"][n] - v).abs().max())
+                for n, v in plain["stats"].items() if "running" in n)
+    assert stats > 1e-5
+    largest = max(float(g.abs().max()) for g in plain["grads"].values() if g is not None)
+    gaps = [float((banded["grads"][n] - g).abs().max()) / float(g.abs().max())
+            for n, g in plain["grads"].items()
+            if g is not None and float(g.abs().max()) > 1e-3 * largest]
+    assert max(gaps) > GRAD_BAR[True]
+
+
+def test_band_group_in_training_raises():
+    """Band-parallel flow is eval only, as in the JAX package, whose
+    training builds no band mesh."""
+    flow = tpointmvsnet.PointFlow(4, (4,), (4, 1), k=4).train()
+    with pytest.raises(ValueError, match="eval-only"):
+        tpointmvsnet.banded_point_flow(flow, [], [], None, torch.zeros(1, 40, 8), None, 8,
+                                       band_group=object())
