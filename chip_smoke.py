@@ -146,10 +146,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            max (csrc/masked_window_max_general.cu) at each of those (G,
            win), F 10/32/64/160, bf16 and f32, NaN rows and {-0, +0, ±1},
            kNN and random masks (and the tuned kernel where the rule picks
-           it, F 160 included). Device time of the general kernels at the
+           it, F 160 included), and at F = 2^21 + 8 bf16 (past 65535 blocks
+           of channel chunks). Device time of the general kernels at the
            paper-eval flow grids with k = 8, window 5 and 3, beside the
-           plain versions and the bound, and the tuned kernels' time per
-           request beside the one PERF.md records. Paper-eval requests at
+           plain versions and the bound, the tuned kernels' time per
+           request beside the one PERF.md records, and the general kernels
+           forced on the tuned kernels' inputs (k = 16, window 5), bit-equal
+           to them. Paper-eval requests at
            MODEL.KNN 8,
            windows 5 and 3: 3 general kNN launches, 9 masked-max launches
            (tuned at window 5 with G = 5, by the dispatch rule; general at
@@ -164,11 +167,12 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            beside the unbanded step's. A whole run takes this phase right
            after train, while CUPTI still returns device times.
 
-Then a JSON line of per-kernel numbers (``launches`` per serving request
-for the tuned kernels, per KNN 8 request for the general ones; per train
-step and validation batch in f32 and in bf16; per exported map; per
-request from converted weights; per banded request; per KNN 8 request
-and banded train step), the nvidia-smi line, and last ``{"ok": true,
+Then the script's time from the build's start, a JSON line of
+per-kernel numbers (``launches`` per serving request for the tuned
+kernels, per KNN 8 request for the general ones; per train step and
+validation batch in f32 and in bf16; per exported map; per request from
+converted weights; per banded request; per KNN 8 request and banded
+train step), the nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``. ``--phases
 dataplane,train,train-bf16,train-dp,export-dtu,weights,parallel-eval,envelope``
 (any subset of the eight) runs only those, to try them on the card, and
@@ -2245,8 +2249,13 @@ def phase_dataplane():
 # (G, k, window) of the general kNN's checks: the Pallas kernel's own tests'
 # shapes, MODEL.KNN 8, FLOW_INTERVAL_M 3 (G = 7) and G = 14 (the most levels
 # window 3 holds) at window 3, the corner bound k = G·(win/2+1)² at window
-# 5, the widest window
-ENV_KNN = [(3, 6, 3), (5, 12, 5), (5, 8, 5), (7, 8, 3), (14, 16, 3), (5, 45, 5), (1, 36, 11)]
+# 5, the widest window, and window 1 at G = 128 (the masked max's widest
+# staging plan: one tile row; k = 128 the longest list)
+ENV_KNN = [(3, 6, 3), (5, 12, 5), (5, 8, 5), (7, 8, 3), (14, 16, 3), (5, 45, 5), (1, 36, 11),
+           (128, 8, 1), (128, 128, 1)]
+# the masked max past 65535 channel chunks of any staging plan: G = 1,
+# window 3, a 3x5 grid, F = 2^21 + 8 bf16 (63 MB)
+ENV_WIDE = (1, 3, 3, 5, 2 ** 21 + 8)
 ENV_F = (10, 32, 64, 160)
 ENV_GRIDS = [(37, 53), FLOWS[0]]     # no multiple of either kernel's tile; flow1
 ENV_K = 8                            # MODEL.KNN of the timed shapes and the requests
@@ -2358,12 +2367,30 @@ def envelope_kernels(dev) -> dict:
                             check(bool(torch.signbit(zero).any())
                                   and bool((~torch.signbit(zero)).any()),
                                   f"the ±0 case at G={g} win={win} produced only one zero")
+    # past 65535 blocks of channel chunks
+    g, win, h, w, f = ENV_WIDE
+    grid, plan = (g, h, w), edge.staging_plan(g, win, f, torch.bfloat16)
+    check(-(-f * 2 // plan.chunk_bytes) > 65535, f"envelope: F={f} fits 65535 chunks")
+    pts = torch.from_numpy(np.random.RandomState(5).rand(1, g * h * w, 3).astype(np.float32))
+    kmask = knn.window_knn_cuda(pts.to(dev), grid, 4, win)[1]
+    for mcase, m in (("knn", kmask), ("random", random_mask(1, g, h, w, dev, 5, win))):
+        for kind in ("nan", "zeros"):
+            z = torch.from_numpy(special_z(kind, 1, g * h * w, f, 5)).to(dev).bfloat16()
+            out = edge.masked_window_max_cuda(z, m, grid, win)
+            torch.cuda.synchronize()
+            check(same_bits(out, edge.masked_window_max_plain(z, m, grid, win)),
+                  f"envelope: general masked_window_max {kind} {mcase}-mask grid {grid} "
+                  f"win={win} F={f} bf16: kernel != plain")
+            n_mwm += 1
+            del z, out
     print(f"envelope: general window_knn bit-equal to the plain version in {n_knn} cases "
           f"((G, k, win) {ENV_KNN} and (5, 16, 5) forced; grids {ENV_GRIDS}; random, integer "
           f"lattice, duplicated levels; the {ENV_GRIDS[0]} grid against the CPU too); "
           f"masked_window_max in {n_mwm} cases (general at every (G, win) {sorted(masks)}, "
           f"tuned where the rule picks it; F {ENV_F}; NaN rows, {{-0, +0, ±1}}; kNN and random "
-          f"masks; bf16, f32; F=10 against the CPU too)", flush=True)
+          f"masks; bf16, f32; F=10 against the CPU too; and G={g} win={win} grid {grid} "
+          f"F={f} bf16, {-(-f * 2 // plan.chunk_bytes)} chunks of {plan.chunk_bytes} B)",
+          flush=True)
     return err
 
 
@@ -2371,7 +2398,9 @@ def envelope_timing(dev) -> dict:
     """Device time (CUPTI) of the general kernels at the paper-eval flow
     grids with k = ENV_K, window 5 and 3 (the masked max forced to the
     general kernel at window 5), beside the plain versions and the bound;
-    the tuned kernels' per-request time at k = 16 beside the recorded one. →
+    the tuned kernels' per-request time at k = 16 beside the recorded one,
+    and the general kernels forced on the tuned kernels' inputs (k = 16,
+    window 5: "<name>_general_at_tuned"), bit-equal to the tuned ones. →
     {(kernel, window): [ms, plain_ms, bound_ms] per request, with the
     bound's kind and the time's source}."""
     from pointmvsnet_tpu_torch.ops import edge, knn
@@ -2388,13 +2417,30 @@ def envelope_timing(dev) -> dict:
         gen = torch.Generator(device=dev).manual_seed(fi)
         zs = {f: torch.randn(1, G * h * w, f, device=dev, generator=gen).bfloat16()
               for f in sorted(set(EDGE_F))}
-        _, mask16 = knn.window_knn_cuda(pts, grid)
+        idx16, mask16 = knn.window_knn_cuda(pts, grid)
         ms, how = cupti_ms(lambda: knn.window_knn_cuda(pts, grid), "window_knn_kernel")
         add(("window_knn", 5), 1, ms, 0.0, 0.0, "bytes", how)
+        # the general kernels forced at the tuned kernels' shape, same inputs
+        forced = knn.window_knn_cuda(pts, grid, variant="general")
+        torch.cuda.synchronize()
+        check(torch.equal(forced[0], idx16) and torch.equal(forced[1], mask16),
+              f"envelope: general window_knn forced at flow{fi} k=16 win=5 != tuned")
+        ms, how = cupti_ms(lambda: knn.window_knn_cuda(pts, grid, variant="general"),
+                           "window_knn_general_kernel")
+        add(("window_knn_general_at_tuned", 5), 1, ms, 0.0, *bound_ms(*knn_bound(h, w)), how)
         for f, z in zs.items():
             ms, how = cupti_ms(lambda: edge.masked_window_max_cuda(z, mask16, grid),
                                "masked_window_max_kernel")
             add(("masked_window_max", 5), EDGE_F.count(f), ms, 0.0, 0.0, "bytes", how)
+            out = edge.masked_window_max_cuda(z, mask16, grid, variant="general")
+            torch.cuda.synchronize()
+            check(same_bits(out, edge.masked_window_max_cuda(z, mask16, grid)),
+                  f"envelope: general masked_window_max forced at flow{fi} F={f} != tuned")
+            ms, how = cupti_ms(lambda: edge.masked_window_max_cuda(z, mask16, grid,
+                                                                   variant="general"),
+                               "masked_window_max_general_kernel")
+            add(("masked_window_max_general_at_tuned", 5), EDGE_F.count(f), ms, 0.0,
+                *bound_ms(*mwm_bound(z, mask16)), how)
         for win in (5, 3):
             idx, mask = knn.window_knn_cuda(pts, grid, ENV_K, win)
             torch.cuda.synchronize()
@@ -2425,9 +2471,14 @@ def envelope_timing(dev) -> dict:
             print(f"envelope: flow{fi} grid {grid} k={ENV_K} win={win}: {'; '.join(line)}",
                   flush=True)
     for (name, win), t in sorted(per.items()):
-        base = (f" (recorded: {RECORDED_REQUEST_MS[name]} ms; tuned, k=16)"
-                if name in RECORDED_REQUEST_MS
-                else f", plain {t[1]:.1f} ms, bound {t[2]:.5f} ms ({'+'.join(sorted(t[3]))})")
+        if name in RECORDED_REQUEST_MS:
+            base = f" (recorded: {RECORDED_REQUEST_MS[name]} ms; tuned, k=16)"
+        elif name.endswith("_at_tuned"):
+            tuned = per[(name.split("_general")[0], 5)][0]
+            base = (f" (forced at k=16 win=5; the tuned kernel on the same inputs {tuned:.5f} "
+                    f"ms), bound {t[2]:.5f} ms")
+        else:
+            base = f", plain {t[1]:.1f} ms, bound {t[2]:.5f} ms ({'+'.join(sorted(t[3]))})"
         print(f"envelope: per paper-eval request (flow1-3, F=(32,32,64) bf16) {name} win={win}: "
               f"{t[0]:.5f} ms ({'+'.join(sorted(t[4]))}){base}; {smi_line()}", flush=True)
     return per
@@ -2634,7 +2685,7 @@ def main(argv=None) -> int:
           f"disable_tf32 warned {len(caught)} time(s) {[str(w.message)[:80] for w in caught]}",
           flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _cuda.build()
     print(f"build: {sorted(_cuda.SIGNATURES)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _cuda.build_log.items():
@@ -2751,6 +2802,8 @@ def main(argv=None) -> int:
             "launches_per_banded_train_step": 0,
             "ms_per_request_window": {w: round(t[0], 5) for (n, w), t in env["timing"].items()
                                       if n == f"{name}_general"},
+            "ms_forced_at_tuned_shape": round(env["timing"][(f"{name}_general_at_tuned", 5)][0],
+                                              5),
         })
     rows.append({
         "name": "window_gather", "route": "cuda",
@@ -2764,6 +2817,8 @@ def main(argv=None) -> int:
         "launches_per": "serving request (the probe is off the model's path)",
         "launches_probe_entry_point": gat["probe_launches"],
     })
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s from the "
+          f"build's start", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

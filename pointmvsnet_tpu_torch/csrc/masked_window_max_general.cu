@@ -5,7 +5,7 @@
 // masked_window_max) at the shapes the tuned kernel (masked_window_max.cu:
 // window 5, G ≤ 5, B·⌈F·size/64⌉ ≤ 65535 blocks) does not take: any odd
 // window with G·win² ≤ 128 candidates (G up to 14 at window 3, 128 at
-// window 1), any F, f32 and bf16.
+// window 1), any B and F, f32 and bf16.
 //
 // out[b, p, f] = max of z[b, nbr_s(p), f] over the window candidates s set
 // in p's selection mask (bit s = (gc·win + dy)·win + dx of word s / 32),
@@ -19,17 +19,28 @@
 // Bound on this card: bytes. The function reads z and the mask words once
 // and writes out once; the maxima are far below the arithmetic peak.
 //
-// Design: the simple kernel, reading z's rows through L1 / L2 without
-// staging them. One thread per (point, piece of the channels): a piece is
-// 16 bytes (4 f32 or 8 bf16) where F·size is a multiple of 16 and z and
-// out are 16-byte aligned, else one element. Pieces are the fastest index,
-// so a warp's loads of one neighbour row coalesce. A thread walks its
-// point's set bits one word at a time, lowest first, and folds each
-// in-image neighbour's piece in. A grid-stride loop over all B·P·pieces
-// (64-bit indices) takes any B and F: the tuned kernel's grid limit
-// (B · channel chunks ≤ 65535) does not apply.
+// Design: the tuned kernel's, for any (G, win, F, dtype). A block owns a
+// tile of TH×32 pixels at all G levels and one channel chunk of 64, 32 or
+// 16 bytes (4, 2 or 1 lanes per point). It copies the tile's z rows with
+// a halo of win/2 pixels ([G][TH + 2r][32 + 2r] rows of one chunk) and the
+// tile's mask words ([NW][G][TH][32]) into shared memory with cp.async,
+// one warp per staged row, so that device memory sees each z row about
+// (TH + 2r)·(32 + 2r) / (32·TH) times and each mask word once per chunk.
+// Rows outside the image are filled with the floor, so an out-of-image
+// bit needs no test. A 128-entry table, built per block for (G, win), maps
+// bit s to its row's offset in the window; a group of lanes walks its
+// point's set bits one 32-bit word at a time, highest first, and folds
+// each row in with max.NaN on 16-byte pieces (bf16x2 or f32). Where
+// F·size is not a multiple of 16 or z / out are not 16-byte aligned, the
+// pieces are staged and stored element by element. TH and the chunk come
+// from ops/edge.py::staging_plan, which fits the buffer to 227 KB, takes
+// the widest chunk that fits (on this card a 32-byte chunk of a 64- or
+// 128-byte row took 1.4-2.2x the time of a 64-byte one, a 16-byte chunk
+// twice that again: PERF.md §6), then two blocks per SM, then the tile
+// that stages the fewest bytes. SMEM_PER_BLOCK, the shared memory a block
+// may use, comes from ops/_cuda.py's nvcc flags. The grid is one dimension of B·chunks·tiles blocks; a
+// block splits its index with 32-bit divisions, once.
 
-#include <algorithm>
 #include <cfloat>
 #include <cstdint>
 #include <cstring>
@@ -38,16 +49,19 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr long long MAX_BLOCKS = 1 << 20;
+constexpr int TW = 32;                 // tile columns: one warp's points of a row
+constexpr int THREADS = 512;
+constexpr int NWARPS = THREADS / 32;
+constexpr int MAX_NW = 4;              // mask words for at most 128 candidates
+constexpr int TABLE_BYTES = MAX_NW * 32 * (int)sizeof(int);
 
-__device__ __forceinline__ unsigned max_nan32(unsigned a, unsigned b, float) {
+__device__ __forceinline__ unsigned max_nan(unsigned a, unsigned b, float) {
   float r;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(__uint_as_float(a)), "f"(__uint_as_float(b)));
   return __float_as_uint(r);
 }
 
-__device__ __forceinline__ unsigned max_nan32(unsigned a, unsigned b, __nv_bfloat16) {
+__device__ __forceinline__ unsigned max_nan(unsigned a, unsigned b, __nv_bfloat16) {
   __nv_bfloat162 x, y;
   memcpy(&x, &a, 4);
   memcpy(&y, &b, 4);
@@ -57,104 +71,178 @@ __device__ __forceinline__ unsigned max_nan32(unsigned a, unsigned b, __nv_bfloa
   return r;
 }
 
-__device__ __forceinline__ float fold(float a, float b) {
-  return __uint_as_float(max_nan32(__float_as_uint(a), __float_as_uint(b), 0.f));
+template <typename T> __device__ __forceinline__ unsigned floor_bits();
+template <> __device__ __forceinline__ unsigned floor_bits<float>() {
+  return __float_as_uint(-FLT_MAX * 0.5f);
+}
+template <> __device__ __forceinline__ unsigned floor_bits<__nv_bfloat16>() {
+  const __nv_bfloat16 v = __float2bfloat16_rn(-FLT_MAX * 0.5f);
+  unsigned short u;
+  memcpy(&u, &v, 2);
+  return (unsigned)u * 0x10001u;
 }
 
-__device__ __forceinline__ __nv_bfloat16 fold(__nv_bfloat16 a, __nv_bfloat16 b) {
-  return __hmax_nan(a, b);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
 }
 
-template <typename T>
-__device__ __forceinline__ uint4 fold(uint4 a, uint4 b) {
-  return make_uint4(max_nan32(a.x, b.x, T()), max_nan32(a.y, b.y, T()),
-                    max_nan32(a.z, b.z, T()), max_nan32(a.w, b.w, T()));
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src));
 }
 
-template <typename T> __device__ __forceinline__ T floor_value();
-template <> __device__ __forceinline__ float floor_value<float>() { return -FLT_MAX * 0.5f; }
-template <> __device__ __forceinline__ __nv_bfloat16 floor_value<__nv_bfloat16>() {
-  return __float2bfloat16_rn(-FLT_MAX * 0.5f);
-}
-
-template <typename T>
-__device__ __forceinline__ uint4 floor_piece() {
-  const T v = floor_value<T>();
-  uint4 u;
-  T* e = reinterpret_cast<T*>(&u);
-#pragma unroll
-  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) e[i] = v;
-  return u;
-}
-
-// P: the piece a thread folds, T (one element) or uint4 (16 bytes of T)
-template <typename T, typename P>
-__global__ void __launch_bounds__(THREADS)
+// PIECES: 16-byte pieces per chunk (lanes per point); lth = log2(TH);
+// vec: F·sizeof(T) is a multiple of 16 and z, out are 16-byte aligned
+template <typename T, int PIECES>
+__global__ void __launch_bounds__(THREADS, 2)
 masked_window_max_general_kernel(const T* __restrict__ z, const int* __restrict__ mask,
                                  T* __restrict__ out, int G, int H, int W, int F, int win,
-                                 long long total) {
-  constexpr bool VEC = sizeof(P) == 16;
-  constexpr int EPP = sizeof(P) / sizeof(T);     // elements per piece
-  const int npieces = F / EPP;
+                                 int lth, int nx, int ny, int nchunk, bool vec) {
+  constexpr int EPV = 16 / sizeof(T);            // elements per 16-byte piece
+  constexpr int CH = PIECES * EPV;               // elements per chunk
+  constexpr int GROUPS = THREADS / PIECES;       // points folded at once
+  extern __shared__ uint4 rows[];                // z rows, then the mask words
+  __shared__ int row_of[MAX_NW * 32];            // bit s → offset in the window, in uint4
+
+  const int th = 1 << lth;
   const int r = win / 2;
+  const int sh = th + 2 * r, sw = TW + 2 * r;
   const int nsh = win * win;
   const int nw = (G * nsh + 31) / 32;
   const int last_bits = G * nsh - 32 * (nw - 1);
   const unsigned last_mask = last_bits >= 32 ? ~0u : (1u << last_bits) - 1u;
+  // blockIdx.x = ((b·nchunk + chunk)·ny + tile row)·nx + tile column
+  unsigned t = blockIdx.x;
+  const int x0 = (int)(t % nx) * TW;
+  t /= nx;
+  const int y0 = (int)(t % ny) * th;
+  t /= ny;
+  const int f_chunk = (int)(t % nchunk) * CH;
+  const int b = (int)(t / nchunk);
   const long long hw = (long long)H * W;
   const long long npts = G * hw;
-  P acc0;                                        // the floor in every element
-  if constexpr (VEC) acc0 = floor_piece<T>();
-  else acc0 = floor_value<T>();
+  const unsigned neg = floor_bits<T>();
+  const uint4 neg4 = make_uint4(neg, neg, neg, neg);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
-       i += (long long)gridDim.x * THREADS) {
-    const int piece = (int)(i % npieces);
-    const long long bp = i / npieces;
-    const long long b = bp / npts;
-    const long long p = bp - b * npts;
-    const int g = (int)(p / hw);
-    const long long yx = p - g * hw;
-    const int y = (int)(yx / W), x = (int)(yx - (long long)(yx / W) * W);
-    const T* zb = z + b * npts * F + (long long)piece * EPP;
-    P acc = acc0;
-    for (int k = 0; k < nw; ++k) {
-      unsigned m = (unsigned)mask[(b * nw + k) * npts + p];
-      if (k == nw - 1) m &= last_mask;
-      while (m) {
-        const int s = 32 * k + __ffs(m) - 1;        // the lowest set bit
-        m &= m - 1;
-        const int gc = s / nsh;
-        const int rem = s - gc * nsh;
-        const int yc = y + rem / win - r, xc = x + rem % win - r;
-        if (yc < 0 || yc >= H || xc < 0 || xc >= W) continue;
-        const P v = *reinterpret_cast<const P*>(zb + (gc * hw + (long long)yc * W + xc) * F);
-        if constexpr (VEC) acc = fold<T>(acc, v);
-        else acc = fold(acc, v);
+  if (tid < MAX_NW * 32) {
+    const int gc = tid / nsh, s = tid - gc * nsh;
+    row_of[tid] = ((gc * sh + s / win) * sw + s % win) * PIECES;
+  }
+  // the tile's z rows with their halo, one warp per (level, row); the
+  // floor outside the image
+  const T* zb = z + (long long)b * npts * F + f_chunk;
+  const int row_pieces = sw * PIECES;
+  for (int row = warp; row < G * sh; row += NWARPS) {
+    const int g = row / sh;
+    const int yy = y0 + row - g * sh - r;
+    const bool row_in = yy >= 0 && yy < H;
+    uint4* dst = rows + row * row_pieces;
+    for (int c = lane; c < row_pieces; c += 32) {
+      const int q = c % PIECES;
+      const int xx = x0 + c / PIECES - r;
+      if (!row_in || xx < 0 || xx >= W) {
+        dst[c] = neg4;
+        continue;
+      }
+      const T* src = zb + (g * hw + (long long)yy * W + xx) * F + q * EPV;
+      if (vec) {
+        if (f_chunk + q * EPV < F) cp_async16(&dst[c], src);
+      } else {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        T* v = reinterpret_cast<T*>(&u);
+#pragma unroll
+        for (int e = 0; e < EPV; ++e)
+          if (f_chunk + q * EPV + e < F) v[e] = src[e];
+        dst[c] = u;
       }
     }
-    *reinterpret_cast<P*>(out + bp * F + (long long)piece * EPP) = acc;
+  }
+  // the tile's mask words, one warp per (word, level, row), 4 bytes each
+  // (a row of the tile is not 16-byte aligned in general); words of points
+  // outside the image are never read
+  unsigned* words = reinterpret_cast<unsigned*>(rows + G * sh * row_pieces);
+  const int* mb = mask + (long long)b * nw * npts;
+  for (int row = warp; row < nw * G * th; row += NWARPS) {
+    const int y = y0 + (row & (th - 1)), x = x0 + lane;
+    if (y < H && x < W)
+      cp_async4(&words[row * TW + lane], mb + (row >> lth) * hw + (long long)y * W + x);
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  const int q = tid % PIECES;
+  const int f0 = f_chunk + q * EPV;
+  const int npt = G * th * TW;                   // points of the tile, all levels
+  for (int pi = tid / PIECES; pi < npt; pi += GROUPS) {
+    const int tx = pi & (TW - 1);
+    const int ty = (pi >> 5) & (th - 1);
+    const int g = pi >> (5 + lth);
+    const int y = y0 + ty, x = x0 + tx;
+    if (y >= H || x >= W) continue;
+    const uint4* window = rows + (ty * sw + tx) * PIECES + q;
+    uint4 acc = neg4;
+#pragma unroll
+    for (int k = 0; k < MAX_NW; ++k) {
+      if (k >= nw) break;
+      unsigned m = words[k * npt + pi] & (k == nw - 1 ? last_mask : ~0u);
+      while (m) {
+        const int s = 31 - __clz(m);                 // the highest set bit
+        m ^= 1u << s;
+        const uint4 v = window[row_of[32 * k + s]];
+        acc.x = max_nan(acc.x, v.x, T());
+        acc.y = max_nan(acc.y, v.y, T());
+        acc.z = max_nan(acc.z, v.z, T());
+        acc.w = max_nan(acc.w, v.w, T());
+      }
+    }
+    T* dst = out + ((long long)b * npts + g * hw + (long long)y * W + x) * F + f0;
+    if (vec) {
+      if (f0 < F) *reinterpret_cast<uint4*>(dst) = acc;
+    } else {
+      const T* v = reinterpret_cast<const T*>(&acc);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e)
+        if (f0 + e < F) dst[e] = v[e];
+    }
   }
 }
 
-template <typename T>
+template <typename T, int PIECES>
 cudaError_t launch(const void* z, const int* mask, void* out, int B, int G, int H, int W,
-                   int F, int win, cudaStream_t stream) {
-  const bool vec = (F * sizeof(T)) % 16 == 0 && (uintptr_t)z % 16 == 0 &&
+                   int F, int win, int lth, size_t smem, cudaStream_t stream) {
+  static bool attr_set = false;       // above 48 KB needs the opt-in
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        masked_window_max_general_kernel<T, PIECES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_PER_BLOCK - TABLE_BYTES);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int ch = PIECES * 16 / (int)sizeof(T);
+  const long long nchunk = ((long long)F + ch - 1) / ch;
+  const long long nx = (W + TW - 1) / TW, ny = (H + (1 << lth) - 1) >> lth;
+  const long long blocks = nx * ny * nchunk * B;
+  if (blocks == 0) return cudaSuccess;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool vec = ((long long)F * sizeof(T)) % 16 == 0 && (uintptr_t)z % 16 == 0 &&
                    (uintptr_t)out % 16 == 0;
-  const int epp = vec ? 16 / (int)sizeof(T) : 1;
-  const long long total = (long long)B * G * H * W * (F / epp);
-  if (total == 0) return cudaSuccess;
-  const long long blocks = std::min((total + THREADS - 1) / THREADS, MAX_BLOCKS);
-  const T* zt = static_cast<const T*>(z);
-  T* ot = static_cast<T*>(out);
-  if (vec)
-    masked_window_max_general_kernel<T, uint4><<<(unsigned)blocks, THREADS, 0, stream>>>(
-        zt, mask, ot, G, H, W, F, win, total);
-  else
-    masked_window_max_general_kernel<T, T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-        zt, mask, ot, G, H, W, F, win, total);
+  masked_window_max_general_kernel<T, PIECES><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      static_cast<const T*>(z), mask, static_cast<T*>(out), G, H, W, F, win, lth, (int)nx,
+      (int)ny, (int)nchunk, vec);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_chunk(const void* z, const int* mask, void* out, int B, int G, int H,
+                         int W, int F, int win, int lth, int chunk_bytes, size_t smem,
+                         cudaStream_t s) {
+  if (chunk_bytes == 64)
+    return launch<T, 4>(z, mask, out, B, G, H, W, F, win, lth, smem, s);
+  if (chunk_bytes == 32)
+    return launch<T, 2>(z, mask, out, B, G, H, W, F, win, lth, smem, s);
+  return launch<T, 1>(z, mask, out, B, G, H, W, F, win, lth, smem, s);
 }
 
 }  // namespace
@@ -165,16 +253,29 @@ extern "C" const char* cuda_error_string(int err) {
 
 // z (B, G·H·W, F) f32 (is_bf16 = 0) or bf16 (1); mask (B, NW, G, H, W)
 // int32 bitplanes, NW = ⌈G·win²/32⌉, odd win, G·win² ≤ 128 → out like z.
-// Returns cudaGetLastError().
+// tile_rows (1, 2, 4 or 8) and chunk_bytes (16, 32 or 64): the staging
+// plan, whose buffer must fit this card's 227 KB. Returns
+// cudaGetLastError().
 extern "C" int masked_window_max_general(const void* z, const int* mask, void* out, int B,
-                                         int G, int H, int W, int F, int win, int is_bf16,
-                                         int device, void* stream) {
+                                         int G, int H, int W, int F, int win, int tile_rows,
+                                         int chunk_bytes, int is_bf16, int device,
+                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (win < 1 || win % 2 != 1 || G < 1 || G * win * win > 128 || B < 0 || H < 1 || W < 1 ||
       F < 0)
     return (int)cudaErrorInvalidValue;
+  int lth = 0;
+  while (lth < 3 && (1 << lth) < tile_rows) ++lth;
+  if ((1 << lth) != tile_rows || (chunk_bytes != 16 && chunk_bytes != 32 && chunk_bytes != 64))
+    return (int)cudaErrorInvalidValue;
+  const int r = win / 2, nw = (G * win * win + 31) / 32;
+  const size_t smem = (size_t)G * (tile_rows + 2 * r) * (TW + 2 * r) * chunk_bytes +
+                      (size_t)nw * G * tile_rows * TW * 4;
+  if (smem + TABLE_BYTES > (size_t)SMEM_PER_BLOCK) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return (int)launch<__nv_bfloat16>(z, mask, out, B, G, H, W, F, win, (cudaStream_t)stream);
-  return (int)launch<float>(z, mask, out, B, G, H, W, F, win, (cudaStream_t)stream);
+    return (int)launch_chunk<__nv_bfloat16>(z, mask, out, B, G, H, W, F, win, lth,
+                                            chunk_bytes, smem, s);
+  return (int)launch_chunk<float>(z, mask, out, B, G, H, W, F, win, lth, chunk_bytes, smem, s);
 }

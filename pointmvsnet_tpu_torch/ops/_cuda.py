@@ -24,19 +24,23 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+SMEM_PER_BLOCK = 232_448     # shared memory a block may use on an H100 (227 KB)
+SMEM_PER_SM = 233_472        # an SM's (228 KB); each resident block reserves 1 KB of it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
+              "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
+              f"-DSMEM_PER_BLOCK={SMEM_PER_BLOCK}")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry → argtypes (pointers and the stream as c_void_p, sizes as c_int)
 SIGNATURES = {
     "window_knn": {"window_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "window_knn_general": {
-        "window_knn_general": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+        "window_knn_general": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "masked_window_max": {
         "masked_window_max": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "masked_window_max_general": {
-        "masked_window_max_general": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+        "masked_window_max_general": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                      _P]},
     "window_gather": {"window_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
 

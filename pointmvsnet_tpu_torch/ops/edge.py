@@ -17,7 +17,7 @@ for bit (NaN payloads aside) with each other and with the JAX package.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +31,7 @@ launches = 0
 launches_by = {"tuned": 0, "general": 0}
 
 _NEG = torch.finfo(torch.float32).min / 2   # value where no candidate is set
+_TABLE_BYTES = 512           # the general kernel's static bit → row table
 _INT_OF_SIZE = {2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
@@ -83,6 +84,39 @@ def kernel_variant(g: int, window: int, f: int, dtype: torch.dtype, b: int = 1) 
     return "tuned" if window == 5 and g <= 5 and b * chunks <= 65535 else "general"
 
 
+class StagingPlan(NamedTuple):
+    tile_rows: int           # TH: the block's tile is TH × 32 pixels at all G levels
+    chunk_bytes: int         # the channels a block folds: 64, 32 or 16 bytes
+
+
+def staging_plan(g: int, window: int, f: int, dtype: torch.dtype) -> StagingPlan:
+    """The general kernel's tile and channel chunk for a (B, G·H·W, F) z of
+    ``dtype`` at ``window``: the widest chunk of (64, 32, 16) bytes, none
+    wider than F·size needs, for which some TH in (8, 4, 2, 1) fits the z
+    rows with a halo of window // 2 pixels, the mask words and the bit
+    table into a block's 227 KB (on the card a narrower chunk of a 64-byte
+    row reads it at a fraction of the memory's rate, PERF.md §6). Of its
+    tiles: two blocks per SM first, then the fewest bytes staged per pixel,
+    then the taller. Raises where none fits."""
+    check_window(g, window)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"z must be float32 or bfloat16, got {dtype}")
+    r, row = window // 2, f * (torch.finfo(dtype).bits // 8)
+    nw = -(-(g * window * window) // 32)
+    for chunk in (64, 32, 16):
+        if chunk > 16 and chunk // 2 >= row:
+            continue                          # a narrower chunk holds the row
+        fits = []
+        for th in (8, 4, 2, 1):
+            staged = g * (th + 2 * r) * (32 + 2 * r) * chunk + nw * g * th * 32 * 4
+            if staged + _TABLE_BYTES <= _cuda.SMEM_PER_BLOCK:
+                per_sm = _cuda.SMEM_PER_SM // (staged + _TABLE_BYTES + 1024)
+                fits.append((min(per_sm, 2), -staged / th, th))
+        if fits:
+            return StagingPlan(max(fits)[2], chunk)
+    raise ValueError(f"no staging plan fits G={g}, window={window}")
+
+
 def check_args(z: torch.Tensor, mask: torch.Tensor, grid_shape: Tuple[int, int, int],
                window: int) -> str:
     """``masked_window_max_cuda``'s checks of its arguments, on any device
@@ -124,10 +158,12 @@ def masked_window_max_cuda(z: torch.Tensor, mask: torch.Tensor,
                                     z.shape[0], g, h, w, z.shape[2], is_bf16,
                                     z.device.index, stream)
     else:
+        plan = staging_plan(g, window, z.shape[2], z.dtype)
         lib = _cuda.load("masked_window_max_general")
         err = lib.masked_window_max_general(z.data_ptr(), mask.data_ptr(), out.data_ptr(),
                                             z.shape[0], g, h, w, z.shape[2], window,
-                                            is_bf16, z.device.index, stream)
+                                            plan.tile_rows, plan.chunk_bytes, is_bf16,
+                                            z.device.index, stream)
     _cuda.check(lib, err, f"masked_window_max ({variant})")
     launches += 1
     launches_by[variant] += 1

@@ -50,6 +50,23 @@ def kernel_variant(g: int, k: int, window: int) -> str:
     return "tuned" if (k, window) == (16, 5) else "general"
 
 
+def tile_rows(g: int, window: int) -> int:
+    """The general kernel's tile height TH for G levels at ``window``: the
+    tallest of (8, 4, 2, 1) whose G·TH·32 points take at most 512 threads,
+    one per point, and whose coordinates with a halo of window // 2 pixels
+    (float4) fit 48 KB of shared memory; else 1 (G > 16 at window 1, where
+    512 threads loop over the tile), which must fit a block's 227 KB."""
+    check_window(g, window)
+    r = window // 2
+    smem = [g * (th + 2 * r) * (32 + 2 * r) * 16 for th in (8, 4, 2, 1)]
+    for th, nbytes in zip((8, 4, 2, 1), smem):
+        if g * th * 32 <= 512 and nbytes <= 48 * 1024:
+            return th
+    if smem[-1] > _cuda.SMEM_PER_BLOCK:
+        raise ValueError(f"no tile fits G={g}, window={window}")
+    return 1
+
+
 def check_args(points: torch.Tensor, grid_shape: Tuple[int, int, int], k: int,
                window: int) -> str:
     """``window_knn_cuda``'s checks of its arguments, on any device and
@@ -144,7 +161,8 @@ def window_knn_cuda(points: torch.Tensor, grid_shape: Tuple[int, int, int],
     else:
         lib = _cuda.load("window_knn_general")
         err = lib.window_knn_general(points.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                                     b, g, h, w, k, window, points.device.index, stream)
+                                     b, g, h, w, k, window, tile_rows(g, window),
+                                     points.device.index, stream)
     _cuda.check(lib, err, f"window_knn ({variant})")
     launches += 1
     launches_by[variant] += 1

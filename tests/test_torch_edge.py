@@ -19,6 +19,7 @@ from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
 from pointmvsnet_tpu_torch.ops.edge import check_args as edge_check_args
 from pointmvsnet_tpu_torch.ops.edge import kernel_variant as edge_kernel_variant
 from pointmvsnet_tpu_torch.ops.edge import masked_window_max, masked_window_max_cuda
+from pointmvsnet_tpu_torch.ops.edge import staging_plan
 from pointmvsnet_tpu_torch.ops.knn import gather_knn
 from pointmvsnet_tpu_torch.utils.convert import jax_to_torch
 from torch_threads import one_torch_thread  # noqa: F401
@@ -308,3 +309,38 @@ def test_edge_check_args_accept_the_envelope():
             edge_check_args(bad_z, bad_mask, (7, 2, 3), 3)
     with pytest.raises(ValueError, match="CUDA"):
         masked_window_max_cuda(z, mask, (7, 2, 3), 3)
+
+
+@pytest.mark.parametrize("win", [1, 3, 5, 7, 9, 11])
+def test_staging_plan_fits_the_envelope(win):
+    """The general masked max has a staging plan for every G with
+    G·win² ≤ 128, F 10/32/64/160, f32 and bf16: its rows with halo, mask
+    words and bit table fit a block's 232,448 bytes, TH ≥ 1, its chunks
+    cover F and none is wider than F needs, no wider chunk fits with any
+    TH, and it takes two blocks per SM wherever some TH with its chunk
+    does."""
+    r = win // 2
+    for g in range(1, 128 // (win * win) + 1):
+        nw = -(-(g * win * win) // 32)
+
+        def smem(th, chunk):
+            return g * (th + 2 * r) * (32 + 2 * r) * chunk + nw * g * th * 32 * 4 + 512
+
+        for f in (10, 32, 64, 160):
+            for dt in (torch.float32, torch.bfloat16):
+                th, chunk = staging_plan(g, win, f, dt)
+                assert th in (1, 2, 4, 8) and chunk in (16, 32, 64)
+                assert smem(th, chunk) <= 232_448
+                row = f * (4 if dt == torch.float32 else 2)
+                chunks = -(-row // chunk)
+                assert (chunks - 1) * chunk < row <= chunks * chunk
+                assert chunk == 16 or chunk // 2 < row
+                for wider in (c for c in (32, 64) if c > chunk and c // 2 < row):
+                    assert all(smem(t, wider) > 232_448 for t in (1, 2, 4, 8))
+                if any(2 * (smem(t, chunk) + 1024) <= 233_472 for t in (1, 2, 4, 8)):
+                    assert 2 * (smem(th, chunk) + 1024) <= 233_472
+    if win == 1:
+        assert staging_plan(128, 1, 64, torch.bfloat16).tile_rows == 1
+    if win == 3:
+        wide = staging_plan(1, 3, 2 ** 21 + 8, torch.bfloat16)       # chip_smoke's ENV_WIDE
+        assert -(-(2 ** 22 + 16) // wide.chunk_bytes) > 65535

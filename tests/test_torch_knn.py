@@ -11,8 +11,8 @@ import torch
 from pointmvsnet_tpu.ops.knn import gather_knn as jgather
 from pointmvsnet_tpu.ops.knn import window_knn as jwindow_knn
 from pointmvsnet_tpu.ops.pallas.knn import pallas_window_knn_mask
-from pointmvsnet_tpu_torch.ops.knn import (check_args, gather_knn, kernel_variant, window_knn,
-                                           window_knn_cuda, window_knn_mask)
+from pointmvsnet_tpu_torch.ops.knn import (check_args, gather_knn, kernel_variant, tile_rows,
+                                           window_knn, window_knn_cuda, window_knn_mask)
 from torch_threads import one_torch_thread  # noqa: F401
 
 B, G, H, W, K, WIN = 2, 5, 16, 24, 16, 5
@@ -162,3 +162,24 @@ def test_check_args_accept_the_envelope():
                    (5, 2 ** 12, 2 ** 12), 26, 5)
     with pytest.raises(ValueError, match="CUDA"):
         window_knn_cuda(pts, (5, 4, 6), 8, 5)
+
+
+@pytest.mark.parametrize("win", [1, 3, 5, 7, 9, 11])
+def test_tile_rows_fit_the_envelope(win):
+    """The general kNN's tile for every G with G·win² ≤ 128: TH in (1, 2,
+    4, 8), its coordinates with halo fit a block's 232,448 bytes, one
+    point per thread up to G = 16, and in the kernel's query loop (thread
+    t takes points t, t + threads, ... of G·TH·32, threads = min(G·TH·32,
+    512)) the 32 lanes of each warp loop the same number of times, as the
+    warp vote needs."""
+    r = win // 2
+    for g in range(1, 128 // (win * win) + 1):
+        th = tile_rows(g, win)
+        assert th in (1, 2, 4, 8)
+        assert g * (th + 2 * r) * (32 + 2 * r) * 16 <= 232_448
+        points = g * th * 32
+        threads = min(points, 512)
+        loops = [len(range(t, points, threads)) for t in range(threads)]
+        assert all(len(set(loops[w:w + 32])) == 1 for w in range(0, threads, 32))
+        if g <= 16:
+            assert threads == points
