@@ -113,14 +113,35 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            the validation batch's kernel calls bit-equal to their plain
            versions, step time and peak memory beside the f32 phase's, a
            profiled step; then one B=2 BatchNorm bf16 flow step, finite.
-15. train-dp  train() inside a one-rank NCCL group bit-equal to train()
+15. learn  the port's learning run (pointmvsnet_tpu_torch/benchmarks/
+           train_synthetic.py, the counterpart of the JAX package's
+           functional check) at its defaults, 64×128, V=3 of a
+           4-view tree, D=16, B=2, GN, RMSprop 1e-3, 30 steps per epoch
+           asked (28 in the loader), 2 coarse-only + 2 flow epochs, in f32
+           and then bf16: the script's rule (coarse loss down, <1_pct_cor
+           up), 0 skipped steps, finite parameters, 2 tuned kNN launches
+           per flow train step and per flow eval step, none in coarse steps
+           and no masked max (GroupNorm takes EdgeConv's gather path in
+           eval too, in both packages), no plain version on a CUDA tensor,
+           the first flow eval step's kernel calls bit-equal to their plain
+           versions, and the masked max (tuned) bit-equal to its plain
+           version on that step's EdgeConv z rows and kNN masks; first →
+           last numbers, steady step times. Then the
+           closed loop from the trained and the initial weights (both saved
+           by the Checkpointer): the test CLI on scan 1 of an eval tree of
+           the same size (4 maps, 3 tuned kNN launches and no masked max
+           each, a finite flow3), the fuse CLI (torch, prob 0, 2 views) with
+           --gt_dir holding the true depth maps back-projected; accuracy,
+           completeness and overall finite, and overall lower from the
+           trained weights.
+16. train-dp  train() inside a one-rank NCCL group bit-equal to train()
            without a group (2 + 2 steps, deterministic algorithms, in a
            process of its own); then two ranks on cuda:0 over gloo at
            64×128, global B=4, BN, f32 and bf16, a coarse-only and a flow
            step each, against the one-rank step at B=4 on the card, with
            the bars of tests/test_torch_distributed.py (printed). One card
            cannot show NCCL between cards.
-16. parallel-eval  the paper-eval request through Predictor at
+17. parallel-eval  the paper-eval request through Predictor at
            MODEL.FLOW_CHUNK_ROWS 0, 64 and 128 (row bands of the flow maps
            with an 8-row halo): kNN / masked-max launches per request
            (3 / 9, 14 / 42, 7 / 21), latency, peak memory and
@@ -137,7 +158,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            Then the test CLI on a (1, 2, 2) grid of four ranks at 64×128,
            V=4, D=16, f32, FLOW_CHUNK_ROWS 16: its PFMs within 1e-4 of the
            one-rank export.
-17. envelope  the kernels over the Pallas kernels' whole envelope and
+18. envelope  the kernels over the Pallas kernels' whole envelope and
            banded PointFlow in training. The general kNN
            (csrc/window_knn_general.cu) bit-equal to its plain version at
            (G, k, win) in ENV_KNN and, forced, at the tuned (5, 16, 5), on
@@ -170,12 +191,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 Then the script's time from the build's start, a JSON line of
 per-kernel numbers (``launches`` per serving request for the tuned
 kernels, per KNN 8 request for the general ones; per train step and
-validation batch in f32 and in bf16; per exported map; per request from
+validation batch in f32 and in bf16; per learning flow step, eval step
+and closed-loop map in each dtype; per exported map; per request from
 converted weights; per banded request; per KNN 8 request and banded
 train step), the nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``. ``--phases
-dataplane,train,train-bf16,train-dp,export-dtu,weights,parallel-eval,envelope``
-(any subset of the eight) runs only those, to try them on the card, and
+dataplane,train,train-bf16,learn,train-dp,export-dtu,weights,parallel-eval,envelope``
+(any subset of the nine) runs only those, to try them on the card, and
 prints no result lines. Imports nothing of JAX.
 """
 
@@ -957,6 +979,295 @@ def phase_train_bf16(dev, f32: dict) -> dict:
           f"{ {k: round(float(v), 4) for k, v in losses.items() if k.endswith('loss')} }, "
           f"finite gradients (EdgeConv BN max |g| {edge:.3e}), update applied", flush=True)
     return res
+
+
+# ------------------------------------------------------------ learn
+
+LEARN_H, LEARN_W, LEARN_STEPS = 64, 128, 30     # the learning script's defaults
+LEARN_DTYPES = (("f32", "float32"), ("bf16", "bfloat16"))
+# per flow train step / flow eval step / exported map: (kNN, masked max), all
+# tuned. No masked max: the run is GroupNorm's, and EdgeConv takes its gather
+# path under GN in eval too, in both packages (the max commutes only with BN's
+# fixed affine or no norm); learn_dtype holds the masked max to its plain
+# version on the trained EdgeConv inputs instead
+LEARN_LAUNCHES = {"train": (2, 0), "eval": (2, 0), "map": (3, 0)}
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    return {n: {v: after[n][v] - before[n][v] for v in after[n]} for n in after}
+
+
+def tuned_only(delta: dict, want: tuple) -> bool:
+    """``delta`` (launch_counts difference) is ``want`` (kNN, masked max)
+    launches, every one of them the tuned kernel's."""
+    return all(delta[n] == {"tuned": k, "general": 0}
+               for n, k in zip(("window_knn", "masked_window_max"), want))
+
+
+class observe_learning_steps:
+    """Inside the block, every train and eval step of the learning run
+    (``pointmvsnet_tpu_torch/benchmarks/train_synthetic.py``) is
+    synchronized and logged: kind, phase, launches by kernel and variant,
+    host ms. The kernel calls of the first flow eval step are recorded
+    (``record_kernel_calls``), and so are its EdgeConv calls' inputs
+    (module, x, keywords)."""
+
+    def __enter__(self):
+        from pointmvsnet_tpu_torch.benchmarks import train_synthetic
+        self.mod = train_synthetic
+        self.saved = (train_synthetic.make_train_step, train_synthetic.make_eval_step)
+        self.log, self.calls, self.edge_inputs = [], None, []
+        make_train, make_eval = self.saved
+        train_synthetic.make_train_step = lambda loss_fn, kw: self._wrap(
+            "train", kw["is_flow"], make_train(loss_fn, kw))
+        train_synthetic.make_eval_step = lambda loss_fn, metric_fn, kw: self._wrap(
+            "eval", kw["is_flow"], make_eval(loss_fn, metric_fn, kw))
+        return self
+
+    def _wrap(self, kind, is_flow, fn):
+        def call(state, batch):
+            torch.cuda.synchronize()
+            before = launch_counts()
+            t0 = time.perf_counter()
+            if kind == "eval" and is_flow and self.calls is None:
+                with record_kernel_calls() as self.calls, self._edge_inputs():
+                    out = fn(state, batch)
+            else:
+                out = fn(state, batch)
+            torch.cuda.synchronize()
+            self.log.append(dict(kind=kind, flow=is_flow, ms=(time.perf_counter() - t0) * 1e3,
+                                 launches=launch_delta(before, launch_counts())))
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def _edge_inputs(self):
+        from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
+        forward = EdgeConv.forward
+
+        def record(ec, x, knn_idx, **kw):
+            self.edge_inputs.append((ec, x, kw))
+            return forward(ec, x, knn_idx, **kw)
+        EdgeConv.forward = record
+        try:
+            yield
+        finally:
+            EdgeConv.forward = forward
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step, self.mod.make_eval_step = self.saved
+
+
+def check_masked_max_on(edge_inputs, what: str) -> str:
+    """The masked max (the CUDA kernel) against its plain version on the
+    z rows and kNN masks of recorded EdgeConv calls, bit for bit: the max
+    that EdgeConv's fast path takes under BN or no norm. → the shapes met."""
+    from pointmvsnet_tpu_torch.ops.edge import masked_window_max, masked_window_max_plain
+
+    check(edge_inputs, f"{what}: no EdgeConv call recorded")
+    met = set()
+    with torch.inference_mode():
+        for ec, x, kw in edge_inputs:
+            c = x.shape[-1]
+            z = (x.to(ec.dtype) @ ec.kernel.to(ec.dtype)[c:]).contiguous()
+            args = (z, kw["mask"], kw["grid_shape"], kw["window"])
+            check(same_bits(masked_window_max(*args), masked_window_max_plain(*args)),
+                  f"{what}: masked_window_max at {tuple(z.shape)} {z.dtype}: kernel != plain")
+            met.add(f"mwm {tuple(z.shape)} {str(z.dtype)[6:]}")
+    return ", ".join(sorted(met))
+
+
+def true_cloud(root: str, views: int) -> np.ndarray:
+    """The scene's true points: every pixel of each view's true depth map
+    (``Depths/scan1_train`` of a train-layout tree) back-projected through
+    its camera, pixel (x, y) at integer coordinates as fusion takes them."""
+    from pointmvsnet_tpu_torch.dataset import io
+    pts = []
+    for v in range(views):
+        d = io.load_pfm(os.path.join(root, "Depths", "scan1_train",
+                                     f"depth_map_{v:04d}.pfm")).astype(np.float64)
+        cam = io.load_cam(os.path.join(root, "Cameras", f"{v:08d}_cam.txt")).astype(np.float64)
+        ys, xs = np.mgrid[0:d.shape[0], 0:d.shape[1]]
+        uv1 = np.stack([xs.ravel(), ys.ravel(), np.ones(xs.size)], 1)
+        pc = uv1 @ np.linalg.inv(cam[1, :3, :3]).T * d.ravel()[:, None]
+        pts.append((pc - cam[0, :3, 3]) @ cam[0, :3, :3])
+    return np.concatenate(pts).astype(np.float32)
+
+
+def closed_loop(label: str, dtype: str, weights: dict, work: str, dev) -> dict:
+    """The test CLI on scan 1 of an eval-layout tree at the learning run's
+    size from each of ``weights`` (name → checkpoint), then the fuse CLI
+    (torch backend, prob 0, 2 views) against the scene's true points. →
+    {name: fused cloud's metrics}, and the launches per map."""
+    from pointmvsnet_tpu_torch import fuse
+    from pointmvsnet_tpu_torch import test as test_cli
+    from pointmvsnet_tpu_torch.benchmarks import train_synthetic as ts
+    from pointmvsnet_tpu_torch.dataset import io
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
+    from pointmvsnet_tpu_torch.postprocess import write_ply
+
+    scene = dict(scans=[1], num_views=ts.NUM_VIEWS, height=LEARN_H, width=LEARN_W,
+                 num_depth=ts.NUM_DEPTH, depth_min=ts.DEPTH_MIN,
+                 depth_interval=ts.DEPTH_INTERVAL)
+    tree, gt_tree, gt_dir = (os.path.join(work, d) for d in ("eval", "gt_tree", "gt"))
+    make_synthetic_dtu(tree, layout="eval", **scene)
+    make_synthetic_dtu(gt_tree, **scene)
+    gt = true_cloud(gt_tree, ts.NUM_VIEWS)
+    os.makedirs(gt_dir, exist_ok=True)
+    write_ply(os.path.join(gt_dir, "scan1.ply"), gt)
+    out = {}
+    for name, weight in weights.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        summary, depth_dir = test_cli.main([
+            "--device", dev.type, "MODEL.DTYPE", dtype, "MODEL.NORM", "gn",
+            "DATA.TEST.ROOT_DIR", tree, "DATA.TEST.NUM_VIEW", str(ts.NUM_VIEWS),
+            "DATA.TEST.NUM_VIRTUAL_PLANE", str(ts.NUM_DEPTH), "DATA.TEST.IMG_HEIGHT",
+            str(LEARN_H), "DATA.TEST.IMG_WIDTH", str(LEARN_W), "DATA.TEST.INTERVAL_SCALE",
+            "1.0", "OUTPUT_DIR", os.path.join(work, f"export_{name}"), "TEST.WEIGHT", weight])
+        t_cli = time.perf_counter() - t0
+        n = summary["maps"]
+        per_map = {k: {v: c // max(n, 1) for v, c in d.items()}
+                   for k, d in launch_counts().items()}
+        check(n == ts.NUM_VIEWS and tuned_only(launch_counts(), tuple(
+            n * c for c in LEARN_LAUNCHES["map"])),
+              f"learn {label} closed loop ({name}): {n} maps, launches {launch_counts()}, "
+              f"want {ts.NUM_VIEWS} maps and {LEARN_LAUNCHES['map']} tuned per map")
+        flow3 = io.load_pfm(os.path.join(depth_dir, "scan1", "00000000_flow3.pfm"))
+        check(flow3.shape == (LEARN_H, LEARN_W) and np.isfinite(flow3).all(),
+              f"learn {label} closed loop ({name}): flow3 {flow3.shape} not finite")
+        r = fuse.main(["--depth_dir", depth_dir, "--out", os.path.join(work, f"clouds_{name}"),
+                       "--backend", "torch", "--device", dev.type, "--prob_threshold", "0",
+                       "--min_views", "2", "--gt_dir", gt_dir])["scan1"]
+        m = {k: r[k] for k in ("accuracy", "completeness", "overall", "n_points")}
+        check(r["backend"] == "torch" and all(np.isfinite(m[k]) for k in m),
+              f"learn {label} closed loop ({name}): backend {r['backend']}, metrics {m}")
+        out[name] = dict(m, test_cli_s=t_cli)
+    print(f"learn {label}: closed loop at {LEARN_W}x{LEARN_H}, V={ts.NUM_VIEWS}, "
+          f"D={ts.NUM_DEPTH}, scan 1 ({len(gt)} true points from {ts.NUM_VIEWS} true depth "
+          f"maps): test CLI ({n} maps, launches per map {per_map}) then fuse CLI (torch, prob "
+          f"0, 2 views, --gt_dir): "
+          + "; ".join(f"{name} weights: accuracy {m['accuracy']:.4f} completeness "
+                      f"{m['completeness']:.4f} overall {m['overall']:.4f} mm, "
+                      f"{m['n_points']} points, test CLI {m['test_cli_s']:.1f} s"
+                      for name, m in out.items())
+          + f"; {smi_line()}", flush=True)
+    check(out["trained"]["overall"] < out["initial"]["overall"],
+          f"learn {label}: overall from the trained weights {out['trained']['overall']} is "
+          f"not below the initial weights' {out['initial']['overall']}")
+    return dict(metrics=out, per_map=per_map)
+
+
+def learn_dtype(label: str, dtype: str, work: str, dev) -> dict:
+    """The learning run (``train_synthetic.run`` at the script's defaults)
+    in ``dtype`` with its gates, then its closed loop."""
+    from pointmvsnet_tpu_torch.benchmarks import train_synthetic as ts
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.models import build_model
+    from pointmvsnet_tpu_torch.parallel import TrainState
+    from pointmvsnet_tpu_torch.utils.checkpoint import Checkpointer
+    from pointmvsnet_tpu_torch.utils.solver import build_optimizer
+
+    root = os.path.join(work, "train")
+    ts.make_tree(root, LEARN_H, LEARN_W)
+    cfg = get_default_cfg()
+    cfg.MODEL.DTYPE = dtype
+    # the run's initial weights, drawn as run() draws them, kept for the loop
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.RNG_SEED)
+        model = build_model(ts.configure(cfg, root), dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    Checkpointer(os.path.join(work, "initial")).save(
+        TrainState(model, build_optimizer(cfg, dict(model.named_parameters()))), 0)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with observe_learning_steps() as obs, forbid_plain_on_cuda():
+        res = ts.run(cfg, root, LEARN_STEPS, dev, init_state=init,
+                     log=lambda s: print(f"learn {label}: {s}", flush=True))
+    t_run = time.perf_counter() - t0
+    state = res.state
+    (c_first, c_last), (f_first, f_last) = res.coarse, res.flow
+    n_steps = {p: len(s) for p, s in res.snapshots.items()}
+    check(ts.learning_ok(c_first, c_last),
+          f"learn {label}: not learning: coarse loss {c_first['total_loss']} -> "
+          f"{c_last['total_loss']}, <1_pct_cor {c_first['<1_pct_cor']} -> {c_last['<1_pct_cor']}")
+    check(state.optimizer.skipped_steps == 0
+          and all(s["skipped_steps"] == 0 for p in res.snapshots.values() for s in p),
+          f"learn {label}: {state.optimizer.skipped_steps} skipped steps")
+    check(all(torch.isfinite(p).all() for p in state.model.parameters()),
+          f"learn {label}: non-finite parameters")
+    check(state.step == sum(n_steps.values()) == len(obs.log) // 2,
+          f"learn {label}: step counter {state.step}, snapshots {n_steps}, "
+          f"{len(obs.log)} steps observed")
+    for kind in ("train", "eval"):
+        for flow, want in ((False, (0, 0)), (True, LEARN_LAUNCHES[kind])):
+            bad = [e["launches"] for e in obs.log if e["kind"] == kind and e["flow"] == flow
+                   and not tuned_only(e["launches"], want)]
+            check(not bad, f"learn {label}: {kind} steps ({'flow' if flow else 'coarse'}) "
+                           f"launched {bad[:2]}, want {want} tuned")
+    check(obs.calls is not None, f"learn {label}: no flow eval step recorded")
+    shapes = check_kernel_calls(obs.calls, f"learn {label} flow eval step")
+    reset_launches()
+    mwm_shapes = check_masked_max_on(obs.edge_inputs, f"learn {label} flow eval step")
+    check(launch_counts()["masked_window_max"] == {"tuned": len(obs.edge_inputs), "general": 0},
+          f"learn {label}: the masked max on the EdgeConv inputs ran {launch_counts()}")
+    ms = {(k, f): [e["ms"] for e in obs.log if e["kind"] == k and e["flow"] == f]
+          for k in ("train", "eval") for f in (False, True)}
+    # steady: the phase's second epoch (the first holds cuDNN's and the allocator's warm-up)
+    steady = {key: float(np.median(v[len(v) // 2:])) for key, v in ms.items()}
+    print(f"learn {label}: {LEARN_W}x{LEARN_H}, V=3 of {ts.NUM_VIEWS}, D={ts.NUM_DEPTH}, B=2, "
+          f"GN, RMSprop lr 1e-3, {dtype}: {n_steps['coarse']} coarse + {n_steps['flow']} flow "
+          f"steps ({LEARN_STEPS} per epoch asked, {n_steps['coarse'] // 2} in the loader) in "
+          f"{t_run:.1f} s; coarse loss {c_first['total_loss']:.4f} -> {c_last['total_loss']:.4f}, "
+          f"<1_pct_cor {c_first['<1_pct_cor']:.4f} -> {c_last['<1_pct_cor']:.4f}; flow loss "
+          f"{f_first['total_loss']:.4f} -> {f_last['total_loss']:.4f}, <1_pct_cor "
+          f"{f_first['<1_pct_cor']:.4f} -> {f_last['<1_pct_cor']:.4f}, <1_pct_flow1 "
+          f"{f_first.get('<1_pct_flow1', 0):.4f} -> {f_last.get('<1_pct_flow1', 0):.4f}, "
+          f"<1_pct_flow2 {f_first.get('<1_pct_flow2', 0):.4f} -> "
+          f"{f_last.get('<1_pct_flow2', 0):.4f}; lr coarse {c_first['lr']:g} -> "
+          f"{c_last['lr']:g}, flow {f_first['lr']:g} -> {f_last['lr']:g}; skipped steps 0, "
+          f"parameters finite; launches per flow train step kNN/masked-max "
+          f"{LEARN_LAUNCHES['train']}, per flow eval step {LEARN_LAUNCHES['eval']}, all tuned, "
+          f"0 in coarse steps (GN: EdgeConv's gather path); one flow eval step's kernel calls "
+          f"bit-equal to their plain versions ({shapes}), and the masked max (tuned) on its "
+          f"{len(obs.edge_inputs)} EdgeConv calls' z rows and kNN masks ({mwm_shapes}); "
+          f"steady ms (median of each phase's second epoch, synchronized) train coarse "
+          f"{steady[('train', False)]:.2f} flow {steady[('train', True)]:.2f}, eval coarse "
+          f"{steady[('eval', False)]:.2f} flow {steady[('eval', True)]:.2f}; "
+          f"{smi_line()}", flush=True)
+    for line in ts.summary_lines(c_first, c_last, f_first, f_last):
+        print(f"learn {label}: {line.strip()}", flush=True)
+
+    trained = os.path.join(work, "trained")
+    Checkpointer(trained).save(state, 3)
+    loop = closed_loop(label, dtype, {"trained": os.path.join(trained, "3.pt"),
+                                      "initial": os.path.join(work, "initial", "0.pt")},
+                       work, dev)
+    flow_launches = {k: next(e["launches"] for e in obs.log if e["kind"] == k and e["flow"])
+                     for k in ("train", "eval")}
+    return dict(coarse=res.coarse, flow=res.flow, loop=loop, launches=flow_launches)
+
+
+def phase_learn(dev) -> dict:
+    """The learning run and its closed loop in f32, then in bf16 (see the
+    module docstring). → {label: learn_dtype's result}."""
+    out = {}
+    for label, dtype in LEARN_DTYPES:
+        work = tempfile.mkdtemp(prefix=f"chip_smoke_learn_{label}_")
+        try:
+            allow_tf32()
+            out[label] = learn_dtype(label, dtype, work, dev)
+            check_f32(f"the learning run and its export ({label})")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    print("learn: " + "; ".join(
+        f"{lab}: coarse <1_pct_cor {r['coarse'][1]['<1_pct_cor']:.4f}, <1_pct_flow2 "
+        f"{r['flow'][1].get('<1_pct_flow2', 0):.4f}, overall trained "
+        f"{r['loop']['metrics']['trained']['overall']:.4f} / initial "
+        f"{r['loop']['metrics']['initial']['overall']:.4f} mm"
+        for lab, r in out.items()) + f"; {smi_line()}", flush=True)
+    return out
 
 
 # tests/test_torch_distributed.py's bars for two ranks against one: losses
@@ -2652,14 +2963,14 @@ def profile_call(fn, what: str, top: int = 12):
 
 PHASES = ["env", "build", "dataplane", "kernels", "adversarial", "gather", "parity", "serve",
           "train", "train-parity", "export", "export-dtu", "weights", "fusion-scan", "train-bf16",
-          "train-dp", "parallel-eval", "envelope"]
+          "learn", "train-dp", "parallel-eval", "envelope"]
 
 
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
-                   help="comma-separated subset of dataplane,train,train-bf16,train-dp,"
+                   help="comma-separated subset of dataplane,train,train-bf16,learn,train-dp,"
                         "export-dtu,weights,parallel-eval,envelope to try on the card (prints no "
                         "result lines); default: every phase")
     args = p.parse_args(argv)
@@ -2702,6 +3013,8 @@ def main(argv=None) -> int:
                 phase_dataplane()
             elif name == "train-bf16":
                 phase_train_bf16(dev, per_train)
+            elif name == "learn":
+                phase_learn(dev)
             elif name == "train-dp":
                 phase_train_dp(dev)
             elif name == "parallel-eval":
@@ -2740,6 +3053,7 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
     phase_fusion_scan()
     per_bf16 = phase_train_bf16(dev, per_train)
+    per_learn = phase_learn(dev)
     phase_train_dp(dev)
     per_band = phase_parallel_eval(dev)
 
@@ -2765,6 +3079,12 @@ def main(argv=None) -> int:
                 per_weights[0 if name == "window_knn" else 1],
             "launches_per_bf16_train_step": per_bf16[name][0],
             "launches_per_bf16_val_batch": per_bf16[name][1],
+            "launches_per_learning_flow_step": {
+                lab: r["launches"]["train"][name]["tuned"] for lab, r in per_learn.items()},
+            "launches_per_learning_eval_step": {
+                lab: r["launches"]["eval"][name]["tuned"] for lab, r in per_learn.items()},
+            "launches_per_closed_loop_map": {
+                lab: r["loop"]["per_map"][name]["tuned"] for lab, r in per_learn.items()},
             "launches_per_banded_request": per_band[name]["launches"],
             "banded_request_flow_chunk_rows": PE_BAND_CR,
             "ms_per_banded_request": round(per_band[name]["ms"], 5),
