@@ -187,6 +187,32 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            6 kNN launches per flow step, finite, step time and peak memory
            beside the unbanded step's. A whole run takes this phase right
            after train, while CUPTI still returns device times.
+19. tanks  Tanks & Temples at its own frame sizes (run right after
+           envelope). The port's tt_sweep (pointmvsnet_tpu_torch/benchmarks/
+           tt_sweep.py, the counterpart of benchmarks/tt_sweep.py) on its
+           four default tokens and unbanded 1280x1024 and 1920x1024 (T&T's
+           1920x1080 frame after the base-64 crop), paper-eval model (V=5,
+           D=96, bf16, BN eval), weights seed 0: maps/s, latency and peak
+           memory per token, no error, launches per map by variant (3 kNN
+           and 9 masked max unbanded, all tuned; a kNN per band and three
+           masked max per band banded), no plain version on a CUDA tensor.
+           Then the forward at 1280x1024 with FLOW_CHUNK_ROWS 0, 64, 32 and
+           128 on the same inputs and weights, every banded map bit-equal to
+           the unbanded one; at 1280x1024 and 1920x1024 unbanded every kernel
+           call bit-equal to its plain version on its real inputs (NaN
+           positions and the sign of zero included) and timed (CUPTI) beside
+           the plain version and the bound. Then the test CLI
+           (configs/tanks.yaml, bf16, weights from RNG_SEED, SHAPE_SET
+           ((1024, 1920), (1024, 1280))) on a T&T tree of two scenes of 6
+           JPEGs, Family 1920x1080 with 256 depths in its cams and Horse
+           1280x1080: each scene's shape, 12 maps, every file, 3 kNN and 9
+           masked-max launches per map, every flow3 bit-equal to Predictor's
+           on the same item; maps/s over the loop and after each shape's
+           first map, forward ms and peak memory per shape, the loader's ms
+           per item (5 decodes, no cache) and the loop's wait for it. Then
+           the fuse CLI on the export (torch on the card), each scene's
+           seconds and peak memory, Horse on the numpy backend against the
+           card within the JAX package's bar.
 
 Then the script's time from the build's start, a JSON line of
 per-kernel numbers (``launches`` per serving request for the tuned
@@ -194,10 +220,11 @@ kernels, per KNN 8 request for the general ones; per train step and
 validation batch in f32 and in bf16; per learning flow step, eval step
 and closed-loop map in each dtype; per exported map; per request from
 converted weights; per banded request; per KNN 8 request and banded
-train step), the nvidia-smi line, and last ``{"ok": true,
-"device": {...}}``. ``--phases
-dataplane,train,train-bf16,learn,train-dp,export-dtu,weights,parallel-eval,envelope``
-(any subset of the nine) runs only those, to try them on the card, and
+train step; per T&T map and sweep token, with the time, plain time
+and bound per T&T map at 1280x1024 and 1920x1024), the nvidia-smi line,
+and last ``{"ok": true, "device": {...}}``. ``--phases
+dataplane,train,train-bf16,learn,train-dp,export-dtu,weights,parallel-eval,envelope,tanks``
+(any subset of the ten) runs only those, to try them on the card, and
 prints no result lines. Imports nothing of JAX.
 """
 
@@ -2933,6 +2960,340 @@ def phase_envelope(dev, per_train=None) -> dict:
     return dict(err=err, timing=timing, requests=requests, banded=banded)
 
 
+# ------------------------------------------------------------ tanks
+
+# the sweep's tokens: the JAX tool's four defaults, then unbanded 1280x1024 (the
+# port's FLOW_CHUNK_ROWS -1) and T&T's 1920x1080 frame after the base-64 crop
+TT_EXTRA_TOKENS = ["bilinear:0@1280x1024", "bilinear:0@1920x1024"]
+TT_GRIDS = [(1024, 1280), (1024, 1920)]     # (H, W) of the kernels' T&T requests
+TT_BANDS = (0, 64, 32, 128)                 # FLOW_CHUNK_ROWS held bit-equal at TT_GRIDS[0]
+TT_SHAPE_SET = ((1024, 1920), (1024, 1280))
+# scene → (height, width, cam num_depth) of its frames, and the member of
+# TT_SHAPE_SET that pick_shape gives it: Family as the real release's
+# (1920x1080, 256 depths), Horse at a ragged width
+TT_SCENES = {"Family": ((1080, 1920, 256), TT_SHAPE_SET[0]),
+             "Horse": ((1080, 1280, 96), TT_SHAPE_SET[1])}
+TT_VIEWS = 6
+
+
+def tanks_want(h: int, cr: int) -> dict:
+    """Launches of one T&T map at input height ``h`` and FLOW_CHUNK_ROWS
+    ``cr``: a kNN per flow band, a masked max per band and EdgeConv, all
+    tuned."""
+    bands = sum(n_bands(int(h * s), cr) for s in (0.25, 0.5, 1.0))
+    return {"window_knn": {"tuned": bands, "general": 0},
+            "masked_window_max": {"tuned": len(EDGE_F) * bands, "general": 0}}
+
+
+def tanks_sweep(dev, work: str) -> dict:
+    """``benchmarks/tt_sweep.py``'s main on its default tokens and
+    TT_EXTRA_TOKENS, out file in ``work``: no token may record an error;
+    each token's launches per map (its 3 · 6 forwards) by variant, no
+    plain version on a CUDA tensor. → {token: record}."""
+    from pointmvsnet_tpu_torch.benchmarks import tt_sweep
+
+    tokens = tt_sweep.DEFAULT_TOKENS + TT_EXTRA_TOKENS
+    counted = []
+    real = tt_sweep.measure
+
+    def measure(model, images, cams, kwargs, iters):
+        reset_launches()
+        res = real(model, images, cams, kwargs, iters=iters)
+        counted.append({n: {v: c // (3 * iters) for v, c in by.items()}
+                        for n, by in launch_counts().items()})
+        check(all(c % (3 * iters) == 0 for by in launch_counts().values() for c in by.values()),
+              f"tanks sweep: launches {launch_counts()} over {3 * iters} forwards")
+        return res
+
+    t0 = time.perf_counter()
+    tt_sweep.measure = measure
+    try:
+        with forbid_plain_on_cuda():
+            res = tt_sweep.main(tokens + ["--out", os.path.join(work, "tt_sweep_torch.json"),
+                                          "--device", str(dev)])
+    finally:
+        tt_sweep.measure = real
+    check(len(counted) == len(tokens), f"tanks sweep: {len(counted)} tokens measured")
+    for tok, got in zip(tokens, counted):
+        rec = res[tok]
+        check("error" not in rec and "maps_per_sec" in rec, f"tanks sweep {tok}: {rec}")
+        _, cr, _, h = tt_sweep.parse_token(tok)
+        want = tanks_want(h, cr)
+        check(got == want, f"tanks sweep {tok}: launches per map {got}, want {want}")
+        print(f"tanks: sweep {tok}: {json.dumps(rec)}; launches per map kNN "
+              f"{got['window_knn']['tuned']} masked-max {got['masked_window_max']['tuned']} "
+              f"(all tuned); {smi_line()}", flush=True)
+    print(f"tanks: sweep of {len(tokens)} tokens in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {tok: dict(res[tok], launches=got) for tok, got in zip(tokens, counted)}
+
+
+def tanks_kernels(dev) -> dict:
+    """The paper-eval forward (bench.build, tt_sweep's KWARGS, weights
+    seed 0) at each of TT_GRIDS unbanded, and at TT_GRIDS[0] at every
+    FLOW_CHUNK_ROWS of TT_BANDS: launches per map by variant, no plain
+    version on a CUDA tensor, every banded map bit-equal to the unbanded
+    one; at each grid unbanded, every kernel call bit-equal to its plain
+    version on its real inputs (NaN positions and the sign of zero
+    included) and timed (CUPTI) beside the plain version and the bound.
+    → {"WxH": {name: (ms, plain_ms, bound_ms, source) per map}}."""
+    import gc
+
+    from pointmvsnet_tpu_torch.bench import build, make_inputs
+    from pointmvsnet_tpu_torch.benchmarks.tt_sweep import KWARGS, VIEWS
+    from pointmvsnet_tpu_torch.utils.convert import init_params
+
+    weights, per_grid = None, {}
+    for (h, w), chunks in zip(TT_GRIDS, (TT_BANDS, (0,))):
+        images, cams = make_inputs(1, VIEWS, h, w, KWARGS["num_virtual_plane"], device=dev)
+        maps = {}
+        for cr in chunks:
+            _, model = build(chunk_rows=cr, device=dev)
+            if weights is None:
+                weights = init_params(model, torch.Generator().manual_seed(0))
+            model.load_state_dict(weights)
+            reset_launches()
+            with torch.inference_mode(), forbid_plain_on_cuda(), \
+                    (record_kernel_calls() if cr == 0 else contextlib.nullcontext()) as calls:
+                t0 = time.perf_counter()
+                out = model(images, cams, **KWARGS)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            got, want = launch_counts(), tanks_want(h, cr)
+            check(got == want, f"tanks {w}x{h} FLOW_CHUNK_ROWS={cr}: launches {got}, want {want}")
+            check(all(bool(torch.isfinite(out[k]).all()) for k in ("coarse_depth_map", "flow3")),
+                  f"tanks {w}x{h} FLOW_CHUNK_ROWS={cr}: non-finite maps")
+            maps[cr] = {k: v for k, v in out.items() if not k.endswith("_input")}
+            note = ""
+            if cr == 0:
+                met = check_kernel_calls(calls, f"tanks {w}x{h}")
+                shapes: dict = {}
+                per_grid[f"{w}x{h}"] = totals = time_kernel_calls(calls, shapes)
+                for (name, grid, f, dt), (kms, pms, bb, by, how) in sorted(shapes.items()):
+                    print(f"tanks: {name} at {w}x{h} grid {grid} F={f} {dt}: kernel {kms:.4f} ms "
+                          f"({how}), plain {pms:.3f} ms, bound {bb:.4f} ms ({by})", flush=True)
+                note = (f"; kernel calls bit-equal to their plain versions ({met}); per map "
+                        f"kernel / plain / bound ms " + ", ".join(
+                            f"{k} {t[0]:.5f} ({t[3]}) / {t[1]:.1f} / {t[2]:.5f}"
+                            for k, t in totals.items()))
+            print(f"tanks: {w}x{h} V={VIEWS} D={KWARGS['num_virtual_plane']} bf16 "
+                  f"FLOW_CHUNK_ROWS={cr}: launches per map kNN {got['window_knn']['tuned']} "
+                  f"masked-max {got['masked_window_max']['tuned']} (tuned), first forward "
+                  f"{ms:.1f} ms{note}; {smi_line()}", flush=True)
+            del model, out, calls
+            gc.collect()
+            torch.cuda.empty_cache()
+        for cr in chunks[1:]:
+            same = {k: same_bits(maps[cr][k], a) for k, a in maps[0].items()}
+            check(all(same.values()), f"tanks {w}x{h}: FLOW_CHUNK_ROWS={cr} differs from the "
+                                      f"unbanded map: {same}")
+        if chunks[1:]:
+            print(f"tanks: {w}x{h} FLOW_CHUNK_ROWS {chunks[1:]}: every map bit-equal to the "
+                  f"unbanded one ({', '.join(maps[0])})", flush=True)
+        del images, cams, maps
+    return per_grid
+
+
+def tanks_export(dev, work: str) -> dict:
+    """The test CLI (configs/tanks.yaml, bf16, weights from RNG_SEED,
+    SHAPE_SET TT_SHAPE_SET) on a T&T tree of TT_SCENES JPEGs: each scene's
+    shape, every file, 3 kNN and 9 masked-max launches per map (tuned),
+    every map's flow3 bit-equal to Predictor's on the same item; maps/s over
+    the loop and after each shape's first map, the forward's ms and peak
+    memory per shape, the loader's ms per item and the loop's wait for it.
+    Then the fuse CLI (torch on ``dev``) on the export, each scene fused
+    again for its seconds and peak memory, and one scene on the numpy
+    backend against the card (the JAX package's bar). → launches per map."""
+    from pointmvsnet_tpu_torch import fuse
+    from pointmvsnet_tpu_torch import test as test_cli
+    from pointmvsnet_tpu_torch.config import get_default_cfg
+    from pointmvsnet_tpu_torch.dataset import io
+    from pointmvsnet_tpu_torch.dataset.preprocess import norm_image
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_tanks
+    from pointmvsnet_tpu_torch.dataset.tanks import TanksDataset
+    from pointmvsnet_tpu_torch.postprocess import read_ply
+    from pointmvsnet_tpu_torch.predictor import Predictor
+
+    tree = os.path.join(work, "tanks")
+    t0 = time.perf_counter()
+    make_synthetic_tanks(tree, scenes=list(TT_SCENES), num_views=TT_VIEWS,
+                         per_scene={s: dict(height=h, width=w, num_depth=nd)
+                                    for s, ((h, w, nd), _) in TT_SCENES.items()})
+    t_tree = time.perf_counter() - t0
+    cfg_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "tanks.yaml")
+    opts = ["MODEL.DTYPE", "bfloat16", "DATA.TEST.ROOT_DIR", tree,
+            "DATA.TEST.SHAPE_SET", str(TT_SHAPE_SET)]
+    cfg = get_default_cfg()
+    cfg.merge_from_file(cfg_file)
+    cfg.merge_from_list(opts)
+    t = cfg.DATA.TEST
+    ds = TanksDataset(tree, num_view=t.NUM_VIEW, num_virtual_plane=t.NUM_VIRTUAL_PLANE,
+                      interval_scale=t.INTERVAL_SCALE, rescale_depth=t.RESCALE_DEPTH,
+                      shape_set=TT_SHAPE_SET)
+    item_ms = {}
+    ds[ds.index.index((list(TT_SCENES)[-1], 0))]    # builds the C data plane where it is missing
+    for scene in TT_SCENES:
+        i = ds.index.index((scene, 1))
+        t0 = time.perf_counter()
+        ds[i]
+        item_ms[scene] = (time.perf_counter() - t0) * 1e3
+    # the parts of an item and of a map's files at the largest frame, host ms
+    scene = list(TT_SCENES)[0]
+    view = ds._image_path(scene, 1)
+    img = io.read_image(view)
+    shape = TT_SCENES[scene][1]
+    parts = {"decode": host_ms(lambda: io.read_image(view), 3),
+             "norm_image": host_ms(lambda: norm_image(img.astype(np.float32)), 3),
+             "write_png": host_ms(lambda: io.write_png(os.path.join(work, "ref.png"),
+                                                       img[:shape[0], :shape[1]]), 3)}
+    frames = ", ".join(f"{s} {w}x{h} ({nd} depths)" for s, ((h, w, nd), _) in TT_SCENES.items())
+    print(f"tanks: T&T tree {frames}, "
+          f"{TT_VIEWS} views each, written in {t_tree:.1f} s; the loader's item ({t.NUM_VIEW} "
+          f"JPEG decodes, no cache, scale, crop, standardize) host ms "
+          f"{ {s: round(v, 1) for s, v in item_ms.items()} }; {scene}'s parts, host ms (mean "
+          f"of 3): {img.shape[1]}x{img.shape[0]} decode {parts['decode']:.1f}, norm_image "
+          f"{parts['norm_image']:.1f}, write_png of the {shape[1]}x{shape[0]} reference image "
+          f"{parts['write_png']:.1f}", flush=True)
+
+    steps, written = [], []
+    real_make, real_log = test_cli.make_eval_step, test_cli.eval_file_logger
+
+    def make_eval_step(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed(state, batch):
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(shape=tuple(batch["images"].shape[2:4]), start=t0,
+                              ms=(time.perf_counter() - t0) * 1e3,
+                              peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                              launches=launch_counts()))
+            return res
+        return timed
+
+    def eval_file_logger(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_log(*args, **kwargs)
+        written.append((t0, time.perf_counter()))
+        return out
+
+    out_dir = os.path.join(work, "tanks_export")
+    test_cli.make_eval_step, test_cli.eval_file_logger = make_eval_step, eval_file_logger
+    try:
+        with forbid_plain_on_cuda():
+            t0 = time.perf_counter()
+            summary, depth_dir = test_cli.main(["--cfg", cfg_file, "--device", str(dev),
+                                                "OUTPUT_DIR", out_dir] + opts)
+            t_cli = time.perf_counter() - t0
+    finally:
+        test_cli.make_eval_step, test_cli.eval_file_logger = real_make, real_log
+    n_maps = len(TT_SCENES) * TT_VIEWS
+    check(summary["maps"] == n_maps and len(steps) == n_maps == len(written),
+          f"tanks export: {summary['maps']} maps, {len(steps)} steps, want {n_maps}")
+    want = tanks_want(TT_SHAPE_SET[0][0], 0)
+    for s in steps:
+        check(s["launches"] == want, f"tanks export: launches {s['launches']}, want {want}")
+
+    pred = Predictor(cfg, device=dev, normalize=False)
+    for i, (scene, ref) in enumerate(ds.index):
+        scan_dir = os.path.join(depth_dir, f"scan{ds.scenes.index(scene)}")
+        stem = os.path.join(scan_dir, f"{ref:08d}")
+        names = {os.path.basename(stem) + s for s in ("_init.pfm", "_flow1.pfm", "_flow2.pfm",
+                                                      "_flow3.pfm", "_prob.pfm", ".txt", ".png")}
+        check(names <= set(os.listdir(scan_dir)), f"tanks export: {scene} view {ref} files")
+        flow3 = io.load_pfm(stem + "_flow3.pfm")
+        shape = TT_SCENES[scene][1]
+        check(flow3.shape == shape and steps[i]["shape"] == shape,
+              f"tanks export: {scene} view {ref} map {flow3.shape}, input {steps[i]['shape']}, "
+              f"want {shape}")
+        item = ds[i]
+        served = pred(item["images"], item["cams"])["flow3"]
+        check(np.isfinite(flow3).all() and np.array_equal(served, flow3),
+              f"tanks export: {scene} view {ref}: flow3 differs from Predictor's, max |Δ| "
+              f"{np.abs(served - flow3).max()}")
+    del pred
+
+    # a map's period in the loop: the wait for the loader's batch, the
+    # forward (eval step, synchronized), the host between them (copies to the
+    # host, meters), the writes of its files (eval_file_logger)
+    report = []
+    for shape in dict.fromkeys(s["shape"] for s in steps):
+        idx = [i for i, s in enumerate(steps) if s["shape"] == shape]
+        after = (len(idx) - 1) / (written[idx[-1]][1] - written[idx[0]][1])
+        ms = {"period": [written[i][1] - written[i - 1][1] for i in idx[1:]],
+              "wait": [steps[i]["start"] - written[i - 1][1] for i in idx[1:]],
+              "forward": [steps[i]["ms"] / 1e3 for i in idx[1:]],
+              "writes": [written[i][1] - written[i][0] for i in idx[1:]]}
+        ms = {k: 1e3 * float(np.median(v)) for k, v in ms.items()}
+        ms["host"] = ms["period"] - ms["wait"] - ms["forward"] - ms["writes"]
+        report.append(f"{shape[1]}x{shape[0]}: {len(idx)} maps, {after:.3f} maps/s after its "
+                      f"first map, first forward {steps[idx[0]]['ms']:.1f} ms, then median ms "
+                      f"{ {k: round(v, 1) for k, v in ms.items()} }, peak "
+                      f"{max(steps[i]['peak'] for i in idx):.2f} GiB")
+    print(f"tanks: test CLI (configs/tanks.yaml, bf16, weights from RNG_SEED, SHAPE_SET "
+          f"{TT_SHAPE_SET}): {n_maps} maps, {summary['maps_per_s']:.3f} maps/s over the loop, "
+          f"{summary['maps_per_s_after_first']:.3f} after the first map, {t_cli:.1f} s with model "
+          f"build; {'; '.join(report)}; launches per map kNN {want['window_knn']['tuned']} "
+          f"masked-max {want['masked_window_max']['tuned']} (tuned); every flow3 bit-equal to "
+          f"Predictor's on the same item; {smi_line()}", flush=True)
+
+    t0 = time.perf_counter()
+    res = fuse.main(["--depth_dir", depth_dir, "--out", os.path.join(work, "tanks_clouds"),
+                     "--device", str(dev), "--prob_threshold", "0", "--min_views", "2"])
+    t_fuse = time.perf_counter() - t0
+    scans = sorted(res)
+    check(scans == [f"scan{i}" for i in range(len(TT_SCENES))]
+          and all(r["backend"] == "torch" and r["n_points"] > 0 for r in res.values()),
+          f"tanks fuse: {res}")
+    per_scene = []
+    for scan in scans:
+        scan_dir = os.path.join(depth_dir, scan)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pts, _, used = fuse.fuse_scan(scan_dir, prob_threshold=0, min_views=2, device=dev)
+        secs = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        cli_pts = read_ply(res[scan]["ply"])[0]
+        check(used == "torch" and np.array_equal(pts, cli_pts) and np.isfinite(pts).all(),
+              f"tanks fuse {scan}: {used}, {len(pts)} points against the CLI's {len(cli_pts)}")
+        per_scene.append(f"{scan} {len(pts)} points in {secs:.3f} s, peak {peak:.2f} GiB")
+    scan = scans[-1]
+    t0 = time.perf_counter()
+    npts, _, used = fuse.fuse_scan(os.path.join(depth_dir, scan), prob_threshold=0,
+                                   min_views=2, backend="numpy")
+    t_np = time.perf_counter() - t0
+    c = compare_clouds(read_ply(res[scan]["ply"])[0], npts)
+    print(f"tanks: fuse CLI, torch on the card, prob 0, 2 views: {t_fuse:.2f} s for "
+          f"{len(scans)} scenes (CLI wall); per scene {'; '.join(per_scene)}; {scan} on the numpy "
+          f"backend {t_np:.2f} s, against the card {json.dumps(c)}; {smi_line()}", flush=True)
+    check(used == "numpy" and clouds_agree(c), f"tanks fuse {scan}: card against numpy {c}")
+    return want
+
+
+def phase_tanks(dev) -> dict:
+    """Tanks & Temples at its own frame sizes (see the module docstring).
+    → the numbers of the tuned kernels' T&T keys of the kernels line."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tanks_")
+    try:
+        sweep = tanks_sweep(dev, work)
+        kernels = tanks_kernels(dev)
+        per_map = tanks_export(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"tanks: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(sweep=sweep, kernels=kernels, per_map=per_map)
+
+
 def profile_call(fn, what: str, top: int = 12):
     """One more call of ``fn`` under torch.profiler: device busy time (the
     sum of the GPU kernels and copies), its share of the call's wall time,
@@ -2963,7 +3324,7 @@ def profile_call(fn, what: str, top: int = 12):
 
 PHASES = ["env", "build", "dataplane", "kernels", "adversarial", "gather", "parity", "serve",
           "train", "train-parity", "export", "export-dtu", "weights", "fusion-scan", "train-bf16",
-          "learn", "train-dp", "parallel-eval", "envelope"]
+          "learn", "train-dp", "parallel-eval", "envelope", "tanks"]
 
 
 def main(argv=None) -> int:
@@ -2971,8 +3332,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
                    help="comma-separated subset of dataplane,train,train-bf16,learn,train-dp,"
-                        "export-dtu,weights,parallel-eval,envelope to try on the card (prints no "
-                        "result lines); default: every phase")
+                        "export-dtu,weights,parallel-eval,envelope,tanks to try on the card "
+                        "(prints no result lines); default: every phase")
     args = p.parse_args(argv)
     phases = ["env", "build"] + args.phases.split(",") if args.phases else PHASES
     if not torch.cuda.is_available():
@@ -3021,6 +3382,8 @@ def main(argv=None) -> int:
                 phase_parallel_eval(dev)
             elif name == "envelope":
                 phase_envelope(dev, per_train)
+            elif name == "tanks":
+                phase_tanks(dev)
             elif name in ("weights", "export-dtu"):
                 work = tempfile.mkdtemp(prefix="chip_smoke_partial_")
                 try:
@@ -3044,6 +3407,7 @@ def main(argv=None) -> int:
         # before the phases that spawn processes: late in a run CUPTI at
         # times returns no device time (PERF.md), and this phase times kernels
         env = phase_envelope(dev, per_train)
+        tanks = phase_tanks(dev)
         phase_edge_conv_backward()
         phase_train_parity()
         per_map = phase_export(weight, work)
@@ -3096,6 +3460,13 @@ def main(argv=None) -> int:
             "launches_per_banded_train_step": env["banded"]["launches"] if name == "window_knn"
             else 0,
             "banded_train_flow_chunk_rows": ENV_BAND_CR,
+            "launches_per_tanks_map": tanks["per_map"][name]["tuned"],
+            **{f"{key}_{grid}": round(t[name][i], 5) for grid, t in tanks["kernels"].items()
+               for i, key in enumerate(("ms_per_request", "plain_ms_per_request", "bound_ms"))},
+            "ms_per_request_tanks_source": "+".join(sorted(
+                {t[name][3] for t in tanks["kernels"].values()})),
+            "launches_per_tanks_sweep_map": {tok: r["launches"][name]["tuned"]
+                                             for tok, r in tanks["sweep"].items()},
         })
     # the general kernels: launches per KNN 8 request at the window that runs
     # them (kNN: window 5; masked max: window 3, since the rule keeps window 5
