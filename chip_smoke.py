@@ -213,6 +213,18 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            the fuse CLI on the export (torch on the card), each scene's
            seconds and peak memory, Horse on the numpy backend against the
            card within the JAX package's bar.
+20. bench  (run right after serve) the port's counterpart of bench.py,
+           ``python -m pointmvsnet_tpu_torch.bench`` in a process of its own
+           with BENCH_DETAILS set and ``--details`` in a temp dir: exit code
+           0, one stdout line with exactly bench.py's keys and metric name
+           and a finite value above 0; the details file complete, with
+           bench.py's sections (stages_s, V3_D48_fullres, V5_D96_batch2,
+           roofline at the card's peaks, train_step with its stages) plus
+           ``device``, and no error. Then one forward on the headline's
+           inputs in this process: 3 kNN and 9 masked-max launches, all
+           tuned, a finite flow3. Prints the headline, the sections' times
+           and each roofline row's ceiling beside the measured stage that
+           holds it.
 
 Then the script's time from the build's start, a JSON line of
 per-kernel numbers (``launches`` per serving request for the tuned
@@ -223,8 +235,8 @@ converted weights; per banded request; per KNN 8 request and banded
 train step; per T&T map and sweep token, with the time, plain time
 and bound per T&T map at 1280x1024 and 1920x1024), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. ``--phases
-dataplane,train,train-bf16,learn,train-dp,export-dtu,weights,parallel-eval,envelope,tanks``
-(any subset of the ten) runs only those, to try them on the card, and
+dataplane,train,train-bf16,learn,train-dp,export-dtu,weights,parallel-eval,envelope,tanks,bench``
+(any subset of the eleven) runs only those, to try them on the card, and
 prints no result lines. Imports nothing of JAX.
 """
 
@@ -3294,6 +3306,123 @@ def phase_tanks(dev) -> dict:
     return dict(sweep=sweep, kernels=kernels, per_map=per_map)
 
 
+# ------------------------------------------------------------ bench
+
+# bench.py's line keys and details sections, in its order; the port's
+# details add "device" (the card's name and power limit)
+BENCH_LINE_KEYS = ["metric", "value", "unit", "vs_baseline", "baseline_source"]
+BENCH_DETAILS_KEYS = ["complete", "headline_latency_s", "measured_at", "baseline_source",
+                      "device", "stages_s", "V3_D48_fullres", "V5_D96_batch2", "roofline",
+                      "train_step"]
+BENCH_LAUNCHES = {"window_knn": {"tuned": 3, "general": 0},
+                  "masked_window_max": {"tuned": 9, "general": 0}}
+
+
+def roofline_span(stage: str) -> str:
+    """The stage_latencies entry whose time holds a roofline stage."""
+    if stage.startswith("flow3_") or stage == "ref_resample":
+        return "flow3_iter_s"
+    return "coarse_s" if stage in ("coarse_sweep_warp", "volume_unet") else "total_s"
+
+
+def phase_bench(dev) -> dict:
+    """``python -m pointmvsnet_tpu_torch.bench`` with BENCH_DETAILS set and
+    ``--details`` in a temp dir, in a process of its own: exit code 0, the
+    first stdout line with exactly bench.py's keys and metric name and a
+    finite value above 0, no other line; the details file complete, with
+    every section and no error, and nothing else written. Then, in this
+    process, one forward on the headline's inputs (``bench.headline``): 3
+    kNN and 9 masked-max launches, all tuned, no plain version on a CUDA
+    tensor, a finite flow3. Prints the headline, each section's times, the
+    train step with its stages, and each roofline row's ceiling beside the
+    measured stage that holds it, each with the card's name and power
+    limit."""
+    import gc
+    import math
+
+    from pointmvsnet_tpu_torch import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    card = smi_line()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    try:
+        path = os.path.join(work, "details.json")
+        env = dict(os.environ, BENCH_DETAILS="1", PYTHONPATH=os.pathsep.join(
+            p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pointmvsnet_tpu_torch.bench",
+                               "--details", path], cwd=work, env=env, capture_output=True,
+                              text=True, timeout=900)
+        wall = time.perf_counter() - t1
+        for text in proc.stderr.splitlines():
+            print(f"bench: stderr: {text}", flush=True)
+        check(proc.returncode == 0, f"bench exited {proc.returncode}: {proc.stdout[-1000:]}")
+        lines = proc.stdout.splitlines()
+        check(len(lines) == 1, f"bench printed {len(lines)} stdout lines, want 1: {lines}")
+        line = json.loads(lines[0])
+        check(list(line) == BENCH_LINE_KEYS, f"bench line keys {list(line)}")
+        check(line["metric"] == bench.METRIC and line["unit"] == bench.UNIT,
+              f"bench line {line}")
+        check(math.isfinite(line["value"]) and line["value"] > 0, f"bench value {line}")
+        check(os.listdir(work) == ["details.json"], f"bench wrote {os.listdir(work)}")
+        with open(path) as f:
+            rec = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(list(rec) == BENCH_DETAILS_KEYS, f"bench details keys {list(rec)}")
+    check(rec["complete"] is True and '"error"' not in json.dumps(rec),
+          f"bench details incomplete or with an error: {json.dumps(rec)[:1000]}")
+
+    _, model, images, cams, kwargs = bench.headline(dev)
+    reset_launches()
+    with torch.inference_mode(), forbid_plain_on_cuda():
+        out = model(images, cams, **kwargs)
+        torch.cuda.synchronize()
+    got = launch_counts()
+    check(got == BENCH_LAUNCHES, f"bench headline forward: launches {got}, "
+                                 f"want {BENCH_LAUNCHES}")
+    flow3 = out["flow3"]
+    check(flow3.shape == images.shape[:1] + images.shape[2:4]
+          and bool(torch.isfinite(flow3).all()), f"bench headline flow3 {tuple(flow3.shape)}")
+    del model, images, cams, out, flow3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    st, tr = rec["stages_s"], rec["train_step"]
+    print(f"bench: headline {json.dumps(line)}; {rec['headline_latency_s'] * 1e3:.2f} ms per "
+          f"map; launches per map kNN 3 masked-max 9 (tuned), flow3 finite; details device "
+          f"{rec['device']}; {card}", flush=True)
+    print(f"bench: stages_s " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in st.items())
+          + f"; {card}", flush=True)
+    v3, b2 = rec["V3_D48_fullres"], rec["V5_D96_batch2"]
+    print(f"bench: V3_D48_fullres {v3['maps_per_sec']:.4f} maps/s ({v3['latency_s'] * 1e3:.2f} "
+          f"ms); V5_D96_batch2 {b2['maps_per_sec']:.4f} maps/s "
+          f"({b2['latency_s_per_batch'] * 1e3:.2f} ms per batch of 2); {card}", flush=True)
+    print(f"bench: train_step B={tr['batch_size']} {tr['step_latency_s'] * 1e3:.2f} ms "
+          f"({tr['steps_per_sec']:.4f} steps/s, {tr['samples_per_sec']:.4f} samples/s); "
+          f"stages " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in tr["stages_s"].items())
+          + f"; {card}", flush=True)
+    for row in rec["roofline"]:
+        span = roofline_span(row["stage"])
+        print(f"bench: roofline {row['stage']}: ceiling {row['ceiling_ms']} ms "
+              f"({row['bound_by']}; {row['gflops']} GFLOP, {row['stream_mb']} MB, "
+              f"{row['gather_rows_m']} M taps) within {span} {st[span] * 1e3:.2f} ms; {card}",
+              flush=True)
+    flow3_ceiling = sum(r["ceiling_ms"] for r in rec["roofline"]
+                        if roofline_span(r["stage"]) == "flow3_iter_s")
+    total_ceiling = sum(r["ceiling_ms"] for r in rec["roofline"])
+    print(f"bench: roofline sums: flow3 rows {flow3_ceiling:.4f} ms against flow3_iter_s "
+          f"{st['flow3_iter_s'] * 1e3:.2f} ms ({100 * flow3_ceiling / (st['flow3_iter_s'] * 1e3):.2f}%); "
+          f"all rows {total_ceiling:.4f} ms against total_s {st['total_s'] * 1e3:.2f} ms "
+          f"({100 * total_ceiling / (st['total_s'] * 1e3):.2f}%); {card}", flush=True)
+    print(f"bench: the bench process {wall:.1f} s, phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return dict(line=line, details=rec, launches=got)
+
+
 def profile_call(fn, what: str, top: int = 12):
     """One more call of ``fn`` under torch.profiler: device busy time (the
     sum of the GPU kernels and copies), its share of the call's wall time,
@@ -3324,7 +3453,7 @@ def profile_call(fn, what: str, top: int = 12):
 
 PHASES = ["env", "build", "dataplane", "kernels", "adversarial", "gather", "parity", "serve",
           "train", "train-parity", "export", "export-dtu", "weights", "fusion-scan", "train-bf16",
-          "learn", "train-dp", "parallel-eval", "envelope", "tanks"]
+          "learn", "train-dp", "parallel-eval", "envelope", "tanks", "bench"]
 
 
 def main(argv=None) -> int:
@@ -3332,7 +3461,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
                    help="comma-separated subset of dataplane,train,train-bf16,learn,train-dp,"
-                        "export-dtu,weights,parallel-eval,envelope,tanks to try on the card "
+                        "export-dtu,weights,parallel-eval,envelope,tanks,bench to try on the "
+                        "card "
                         "(prints no result lines); default: every phase")
     args = p.parse_args(argv)
     phases = ["env", "build"] + args.phases.split(",") if args.phases else PHASES
@@ -3384,6 +3514,8 @@ def main(argv=None) -> int:
                 phase_envelope(dev, per_train)
             elif name == "tanks":
                 phase_tanks(dev)
+            elif name == "bench":
+                phase_bench(dev)
             elif name in ("weights", "export-dtu"):
                 work = tempfile.mkdtemp(prefix="chip_smoke_partial_")
                 try:
@@ -3400,6 +3532,7 @@ def main(argv=None) -> int:
     gat = phase_gather(dev)
     phase_parity()
     n_knn, n_mwm = phase_serve()
+    phase_bench(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_export_")
     try:
         weight = os.path.join(work, "trained.pt")
