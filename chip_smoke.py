@@ -4,7 +4,10 @@
 
 Phases, one or more lines each; any failure raises and exits non-zero:
 
-1. env     torch / CUDA versions, card name and power limit, and torch's
+1. env     torch / CUDA versions, card name and power limit (every card
+           line of the script is ``bench.device_line``'s: nvidia-smi asked
+           for the card by its UUID; on a one-card machine it must equal
+           the one line nvidia-smi lists), and torch's
            TF32 flags as the process starts. The script does not set them:
            each entry point turns TF32 off itself, and the parity, train
            and export phases check that it did (flags off after
@@ -101,19 +104,33 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            utils/orbax_reader.py on this host, the port on the card against
            the JAX package's depth beside it (expected.npz), the same bars.
            Conversion and read times, host clock.
-13. fusion-scan  both fusion backends on 49 noisy true depth maps of
+13. trained  export and fusion from the checkpoint the JAX package trained
+           (tests/data/orbax_trained/: full widths, BatchNorm, read by
+           utils/orbax_reader.py) at the paper-eval config (640x512, V=5,
+           D=96, 3 flows) on scan 1 of an eval-release tree of PNGs the port
+           writes (its pixels' digest equal to the one the JAX package's
+           outputs were computed on): the test CLI in f32 then bf16, 3 kNN
+           and 9 masked-max launches per map, all tuned, no plain version on
+           a CUDA tensor; the fuse CLI (torch on the card) against the
+           scene's true cloud. Gates against the JAX package's outputs
+           beside the checkpoint (expected.npz): f32 flow3 and prob of the
+           stored view within tests/test_full_parity.py's bars, f32 fused
+           n_points within 1% and accuracy / completeness / overall within
+           2% relative; bf16 finite with overall within 10% of f32's.
+           maps/s of each export and the fusion's seconds beside the card.
+14. fusion-scan  both fusion backends on 49 noisy true depth maps of
            640×512 (a DTU eval scan's view count) at the fuse CLI's
            defaults: times, the card's peak memory, each cloud's accuracy
            / completeness against the scene; the card held to torch on the
            CPU on 9 of the maps (bars in phase_fusion_scan).
-14. train-bf16  the train phase with MODEL.DTYPE bfloat16: step counter,
+15. train-bf16  the train phase with MODEL.DTYPE bfloat16: step counter,
            checkpoints and resume, 0 skipped steps, finite parameters, 2
            kNN and 0 masked-max launches per flow step, 2 kNN and 6
            masked-max (bf16; 4 at F=32, 2 at F=64) per validation batch,
            the validation batch's kernel calls bit-equal to their plain
            versions, step time and peak memory beside the f32 phase's, a
            profiled step; then one B=2 BatchNorm bf16 flow step, finite.
-15. learn  the port's learning run (pointmvsnet_tpu_torch/benchmarks/
+16. learn  the port's learning run (pointmvsnet_tpu_torch/benchmarks/
            train_synthetic.py, the counterpart of the JAX package's
            functional check) at its defaults, 64×128, V=3 of a
            4-view tree, D=16, B=2, GN, RMSprop 1e-3, 30 steps per epoch
@@ -134,14 +151,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            --gt_dir holding the true depth maps back-projected; accuracy,
            completeness and overall finite, and overall lower from the
            trained weights.
-16. train-dp  train() inside a one-rank NCCL group bit-equal to train()
+17. train-dp  train() inside a one-rank NCCL group bit-equal to train()
            without a group (2 + 2 steps, deterministic algorithms, in a
            process of its own); then two ranks on cuda:0 over gloo at
            64×128, global B=4, BN, f32 and bf16, a coarse-only and a flow
            step each, against the one-rank step at B=4 on the card, with
            the bars of tests/test_torch_distributed.py (printed). One card
            cannot show NCCL between cards.
-17. parallel-eval  the paper-eval request through Predictor at
+18. parallel-eval  the paper-eval request through Predictor at
            MODEL.FLOW_CHUNK_ROWS 0, 64 and 128 (row bands of the flow maps
            with an 8-row halo): kNN / masked-max launches per request
            (3 / 9, 14 / 42, 7 / 21), latency, peak memory and
@@ -158,7 +175,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            Then the test CLI on a (1, 2, 2) grid of four ranks at 64×128,
            V=4, D=16, f32, FLOW_CHUNK_ROWS 16: its PFMs within 1e-4 of the
            one-rank export.
-18. envelope  the kernels over the Pallas kernels' whole envelope and
+19. envelope  the kernels over the Pallas kernels' whole envelope and
            banded PointFlow in training. The general kNN
            (csrc/window_knn_general.cu) bit-equal to its plain version at
            (G, k, win) in ENV_KNN and, forced, at the tuned (5, 16, 5), on
@@ -187,7 +204,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            6 kNN launches per flow step, finite, step time and peak memory
            beside the unbanded step's. A whole run takes this phase right
            after train, while CUPTI still returns device times.
-19. tanks  Tanks & Temples at its own frame sizes (run right after
+20. tanks  Tanks & Temples at its own frame sizes (run right after
            envelope). The port's tt_sweep (pointmvsnet_tpu_torch/benchmarks/
            tt_sweep.py, the counterpart of benchmarks/tt_sweep.py) on its
            four default tokens and unbanded 1280x1024 and 1920x1024 (T&T's
@@ -213,7 +230,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            the fuse CLI on the export (torch on the card), each scene's
            seconds and peak memory, Horse on the numpy backend against the
            card within the JAX package's bar.
-20. bench  (run right after serve) the port's counterpart of bench.py,
+21. bench  (run right after serve) the port's counterpart of bench.py,
            ``python -m pointmvsnet_tpu_torch.bench`` in a process of its own
            with BENCH_DETAILS set and ``--details`` in a temp dir: exit code
            0, one stdout line with exactly bench.py's keys and metric name
@@ -231,12 +248,13 @@ per-kernel numbers (``launches`` per serving request for the tuned
 kernels, per KNN 8 request for the general ones; per train step and
 validation batch in f32 and in bf16; per learning flow step, eval step
 and closed-loop map in each dtype; per exported map; per request from
-converted weights; per banded request; per KNN 8 request and banded
+converted weights; per map from the JAX package's trained checkpoint;
+per banded request; per KNN 8 request and banded
 train step; per T&T map and sweep token, with the time, plain time
 and bound per T&T map at 1280x1024 and 1920x1024), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. ``--phases
-dataplane,train,train-bf16,learn,train-dp,export-dtu,weights,parallel-eval,envelope,tanks,bench``
-(any subset of the eleven) runs only those, to try them on the card, and
+dataplane,train,train-bf16,learn,train-dp,export-dtu,weights,trained,parallel-eval,envelope,tanks,bench``
+(any subset of the twelve) runs only those, to try them on the card, and
 prints no result lines. Imports nothing of JAX.
 """
 
@@ -244,6 +262,7 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import hashlib
 import json
 import os
 import shutil
@@ -290,10 +309,10 @@ def check_f32(what: str) -> None:
 
 
 def smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+    """The current card's name and power limit, by ``bench.device_line``
+    (``nvidia-smi`` asked for the card by its UUID)."""
+    from pointmvsnet_tpu_torch.bench import device_line
+    return device_line(torch.device("cuda", torch.cuda.current_device()))
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1116,23 +1135,6 @@ def check_masked_max_on(edge_inputs, what: str) -> str:
     return ", ".join(sorted(met))
 
 
-def true_cloud(root: str, views: int) -> np.ndarray:
-    """The scene's true points: every pixel of each view's true depth map
-    (``Depths/scan1_train`` of a train-layout tree) back-projected through
-    its camera, pixel (x, y) at integer coordinates as fusion takes them."""
-    from pointmvsnet_tpu_torch.dataset import io
-    pts = []
-    for v in range(views):
-        d = io.load_pfm(os.path.join(root, "Depths", "scan1_train",
-                                     f"depth_map_{v:04d}.pfm")).astype(np.float64)
-        cam = io.load_cam(os.path.join(root, "Cameras", f"{v:08d}_cam.txt")).astype(np.float64)
-        ys, xs = np.mgrid[0:d.shape[0], 0:d.shape[1]]
-        uv1 = np.stack([xs.ravel(), ys.ravel(), np.ones(xs.size)], 1)
-        pc = uv1 @ np.linalg.inv(cam[1, :3, :3]).T * d.ravel()[:, None]
-        pts.append((pc - cam[0, :3, 3]) @ cam[0, :3, :3])
-    return np.concatenate(pts).astype(np.float32)
-
-
 def closed_loop(label: str, dtype: str, weights: dict, work: str, dev) -> dict:
     """The test CLI on scan 1 of an eval-layout tree at the learning run's
     size from each of ``weights`` (name → checkpoint), then the fuse CLI
@@ -1142,7 +1144,7 @@ def closed_loop(label: str, dtype: str, weights: dict, work: str, dev) -> dict:
     from pointmvsnet_tpu_torch import test as test_cli
     from pointmvsnet_tpu_torch.benchmarks import train_synthetic as ts
     from pointmvsnet_tpu_torch.dataset import io
-    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu, true_cloud
     from pointmvsnet_tpu_torch.postprocess import write_ply
 
     scene = dict(scans=[1], num_views=ts.NUM_VIEWS, height=LEARN_H, width=LEARN_W,
@@ -1933,6 +1935,119 @@ def phase_weights(work: str):
           f"not importable here: {absent}); the port on the card at {w}x{h} V={v} D={d} f32 "
           f"against the JAX package's depth: {report}; {smi_line()}", flush=True)
     return nk, ne
+
+
+# ------------------------------------------------------------ trained
+
+TRAINED_DTYPES = ("float32", "bfloat16")
+TRAINED_BF16_BAR = 0.10     # bf16 overall within 10% of f32's
+
+
+def phase_trained(dev) -> tuple:
+    """Export and fusion at the paper-eval config from the checkpoint the
+    JAX package trained (tests/data/orbax_trained/), held to the JAX
+    package's outputs beside it (expected.npz; tests/test_torch_trained.py
+    writes both and holds the small config on the CPU). → launches per f32
+    map (kNN, masked max)."""
+    from pointmvsnet_tpu_torch import fuse
+    from pointmvsnet_tpu_torch import test as test_cli
+    from pointmvsnet_tpu_torch.dataset import io
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_synthetic_dtu, true_cloud
+    from pointmvsnet_tpu_torch.postprocess import write_ply
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(root, "tests", "data", "orbax_trained")
+    e = np.load(os.path.join(fixture, "expected.npz"))
+    v, h, w, d = (int(x) for x in e["paper_shape"])
+    view = int(e["paper_view"])
+    prob, min_views = str(float(e["paper_fuse"][0])), str(int(e["paper_fuse"][1]))
+    work = tempfile.mkdtemp(prefix="chip_smoke_trained_")
+    try:
+        tree, gt_tree, gt_dir = (os.path.join(work, n) for n in ("eval", "gt_tree", "gt"))
+        scene = dict(scans=[1], num_views=v, height=h, width=w, num_depth=d,
+                     seed=int(e["scene_seed"]))
+        make_synthetic_dtu(tree, layout="eval", image_ext="png", **scene)
+        make_synthetic_dtu(gt_tree, num_lights=1, **scene)
+        digest = hashlib.sha256()
+        for i in range(v):
+            digest.update(io.read_png(os.path.join(tree, "Eval", "scan1", "images",
+                                                   f"{i:08d}.png")).tobytes())
+        check(digest.hexdigest() == str(e["paper_digest"]),
+              "trained: the eval tree's pixels are not those the JAX package's outputs "
+              "were computed on")
+        gt = true_cloud(gt_tree, v, stride=int(e["paper_gt_stride"]))
+        os.makedirs(gt_dir, exist_ok=True)
+        write_ply(os.path.join(gt_dir, "scan1.ply"), gt)
+        runs = {}
+        for dtype in TRAINED_DTYPES:
+            reset_launches()
+            t0 = time.perf_counter()
+            with forbid_plain_on_cuda():
+                summary, depth_dir = test_cli.main([
+                    "--cfg", os.path.join(root, "configs", "dtu_wde3.yaml"), "--device",
+                    dev.type, "MODEL.DTYPE", dtype, "DATA.TEST.ROOT_DIR", tree,
+                    "DATA.TEST.NUM_VIEW", str(v), "DATA.TEST.NUM_VIRTUAL_PLANE", str(d),
+                    "DATA.TEST.IMG_HEIGHT", str(h), "DATA.TEST.IMG_WIDTH", str(w),
+                    "DATA.TEST.INTERVAL_SCALE", str(float(e["interval_scale"])),
+                    "MODEL.TEST.IMG_SCALES", str(tuple(float(x) for x in e["img_scales"])),
+                    "MODEL.TEST.INTER_SCALES", str(tuple(float(x) for x in e["inter_scales"])),
+                    "OUTPUT_DIR", os.path.join(work, dtype), "TEST.WEIGHT", fixture])
+            t_cli = time.perf_counter() - t0
+            n = summary["maps"]
+            counts = launch_counts()
+            check(n == v and tuned_only(counts, (3 * n, 9 * n)),
+                  f"trained {dtype}: {n} maps, launches {counts}, want {v} maps and 3 kNN "
+                  f"and 9 masked max per map, all tuned")
+            stem = os.path.join(depth_dir, "scan1", f"{view:08d}")
+            maps = {k: io.load_pfm(f"{stem}_{k}.pfm") for k in ("flow3", "prob")}
+            check(maps["flow3"].shape == (h, w) and all(np.isfinite(m).all()
+                                                        for m in maps.values()),
+                  f"trained {dtype}: flow3 {maps['flow3'].shape}, or not finite")
+            t0 = time.perf_counter()
+            r = fuse.main(["--depth_dir", depth_dir, "--out", os.path.join(work, f"clouds_{dtype}"),
+                           "--backend", "torch", "--device", dev.type, "--prob_threshold", prob,
+                           "--min_views", min_views, "--gt_dir", gt_dir])["scan1"]
+            t_fuse = time.perf_counter() - t0
+            check(r["backend"] == "torch" and r["n_points"] > 0 and
+                  all(np.isfinite(r[k]) for k in ("accuracy", "completeness", "overall")),
+                  f"trained {dtype}: fused {r}")
+            runs[dtype] = dict(maps=maps, fused=r,
+                               per_map={k: c["tuned"] // n for k, c in counts.items()})
+            print(f"trained: {dtype} test CLI from tests/data/orbax_trained at {w}x{h} V={v} "
+                  f"D={d}: {n} maps, {summary['maps_per_s']:.3f} maps/s over the loop, "
+                  f"{summary['maps_per_s_after_first']:.3f} after the first map, {t_cli:.1f} s "
+                  f"with model build and weight load; tuned launches per map "
+                  f"{runs[dtype]['per_map']}; fuse CLI (torch on the card, prob {prob}, "
+                  f"{min_views} views, --gt_dir with {len(gt)} true points) {t_fuse:.2f} s: "
+                  f"{r['n_points']} points, accuracy {r['accuracy']:.4f} completeness "
+                  f"{r['completeness']:.4f} overall {r['overall']:.4f} mm; {smi_line()}",
+                  flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    f32, bf16 = runs["float32"], runs["bfloat16"]
+    dd = np.abs(f32["maps"]["flow3"] - e["paper_flow3"][0])
+    dp = np.abs(f32["maps"]["prob"] - e["paper_prob"][0])
+    n_want, *m_want = (float(x) for x in e["paper_fused"])
+    m_got = [f32["fused"][k] for k in ("accuracy", "completeness", "overall")]
+    rel = [abs(a - b) / b for a, b in zip(m_got, m_want)]
+    n_rel = abs(f32["fused"]["n_points"] - n_want) / n_want
+    bf = abs(bf16["fused"]["overall"] - f32["fused"]["overall"]) / f32["fused"]["overall"]
+    print(f"trained: f32 on the card against the JAX package on the CPU (expected.npz): "
+          f"view {view} flow3 max |Δ| {dd.max():.3e} mean {dd.mean():.3e} (bars 0.05 / 0.005), "
+          f"prob max |Δ| {dp.max():.3e} (bar 0.02); fused n_points {f32['fused']['n_points']} "
+          f"vs {int(n_want)} ({100 * n_rel:.3f}%, bar 1%), accuracy / completeness / overall "
+          f"{[round(x, 4) for x in m_got]} vs {[round(x, 4) for x in m_want]} "
+          f"({[round(100 * x, 3) for x in rel]}%, bar 2%); bf16 overall "
+          f"{bf16['fused']['overall']:.4f} vs f32 {f32['fused']['overall']:.4f} "
+          f"({100 * bf:.2f}%, bar {100 * TRAINED_BF16_BAR:.0f}%); {smi_line()}", flush=True)
+    check(dd.max() < 0.05 and dd.mean() < 0.005, f"trained: f32 flow3 max {dd.max()} mean "
+          f"{dd.mean()} against the JAX package's")
+    check(dp.max() < 0.02, f"trained: f32 prob max {dp.max()} against the JAX package's")
+    check(n_rel <= 0.01 and max(rel) <= 0.02,
+          f"trained: f32 fused n_points {n_rel:.4%} and metrics {rel} off the JAX package's")
+    check(bf <= TRAINED_BF16_BAR, f"trained: bf16 overall {bf:.2%} off f32's")
+    return tuple(f32["per_map"][k] for k in ("window_knn", "masked_window_max"))
 
 
 def fusion_scan_scene():
@@ -3452,8 +3567,8 @@ def profile_call(fn, what: str, top: int = 12):
 
 
 PHASES = ["env", "build", "dataplane", "kernels", "adversarial", "gather", "parity", "serve",
-          "train", "train-parity", "export", "export-dtu", "weights", "fusion-scan", "train-bf16",
-          "learn", "train-dp", "parallel-eval", "envelope", "tanks", "bench"]
+          "train", "train-parity", "export", "export-dtu", "weights", "trained", "fusion-scan",
+          "train-bf16", "learn", "train-dp", "parallel-eval", "envelope", "tanks", "bench"]
 
 
 def main(argv=None) -> int:
@@ -3461,8 +3576,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
                    help="comma-separated subset of dataplane,train,train-bf16,learn,train-dp,"
-                        "export-dtu,weights,parallel-eval,envelope,tanks,bench to try on the "
-                        "card "
+                        "export-dtu,weights,trained,parallel-eval,envelope,tanks,bench to try "
+                        "on the card "
                         "(prints no result lines); default: every phase")
     args = p.parse_args(argv)
     phases = ["env", "build"] + args.phases.split(",") if args.phases else PHASES
@@ -3476,13 +3591,20 @@ def main(argv=None) -> int:
     from pointmvsnet_tpu_torch import disable_tf32
 
     card = smi_line()
+    # the card by its UUID is the one card that nvidia-smi lists here
+    listed = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            timeout=60).stdout.strip().splitlines()
+    check("failed" not in card and (len(listed) != 1 or listed == [card]),
+          f"env: the card by its UUID gives {card!r}, nvidia-smi lists {listed}")
     found = tf32_flags()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         disable_tf32()                      # counted, then the flags are put back
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = found
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; {card}; TF32 flags as "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; {card} (by UUID "
+          f"{torch.cuda.get_device_properties(0).uuid}; nvidia-smi lists {listed}); TF32 flags as "
           f"found: cudnn.allow_tf32={found[0]} matmul.allow_tf32={found[1]}; "
           f"disable_tf32 warned {len(caught)} time(s) {[str(w.message)[:80] for w in caught]}",
           flush=True)
@@ -3516,6 +3638,8 @@ def main(argv=None) -> int:
                 phase_tanks(dev)
             elif name == "bench":
                 phase_bench(dev)
+            elif name == "trained":
+                phase_trained(dev)
             elif name in ("weights", "export-dtu"):
                 work = tempfile.mkdtemp(prefix="chip_smoke_partial_")
                 try:
@@ -3548,6 +3672,7 @@ def main(argv=None) -> int:
         per_weights = phase_weights(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    per_trained = phase_trained(dev)
     phase_fusion_scan()
     per_bf16 = phase_train_bf16(dev, per_train)
     per_learn = phase_learn(dev)
@@ -3574,6 +3699,8 @@ def main(argv=None) -> int:
             "launches_per_exported_map": per_map[0 if name == "window_knn" else 1],
             "launches_per_request_from_converted_weights":
                 per_weights[0 if name == "window_knn" else 1],
+            "launches_per_map_from_jax_trained_checkpoint":
+                per_trained[0 if name == "window_knn" else 1],
             "launches_per_bf16_train_step": per_bf16[name][0],
             "launches_per_bf16_val_batch": per_bf16[name][1],
             "launches_per_learning_flow_step": {

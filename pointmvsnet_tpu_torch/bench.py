@@ -203,18 +203,23 @@ def measure_train_step(batch_size=1, iters=8, with_stages=False, *, v=3, h=512, 
 
 def device_line(device: torch.device) -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them, or
-    "cpu"."""
+    "cpu". The card is asked for by its UUID: ``nvidia-smi`` ignores
+    ``CUDA_VISIBLE_DEVICES`` and lists every card in PCI order, so a
+    position in its list can name another card than torch's index."""
     if device.type != "cuda":
         return "cpu"
+    uuid = str(torch.cuda.get_device_properties(device).uuid)
+    if not uuid.startswith("GPU-"):
+        uuid = f"GPU-{uuid}"
     try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+        out = subprocess.run(["nvidia-smi", f"--id={uuid}", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60)
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"{torch.cuda.get_device_name(device)}; nvidia-smi failed: {e}"
     if out.returncode:
         return f"{torch.cuda.get_device_name(device)}; nvidia-smi failed: {out.stderr.strip()}"
-    return out.stdout.strip().splitlines()[device.index or 0]
+    return out.stdout.strip()
 
 
 def _flush_details(details: dict, path: str) -> None:

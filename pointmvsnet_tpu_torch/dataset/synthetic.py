@@ -22,7 +22,8 @@ from typing import Sequence
 
 import numpy as np
 
-from pointmvsnet_tpu_torch.dataset.io import write_cam, write_jpeg, write_pfm, write_png
+from pointmvsnet_tpu_torch.dataset.io import (load_cam, load_pfm, write_cam, write_jpeg,
+                                              write_pfm, write_png)
 from pointmvsnet_tpu_torch.dataset.preprocess import norm_image
 
 
@@ -188,7 +189,7 @@ def make_synthetic_dtu(root: str, scans: Sequence[int] = (1,), num_views: int = 
                        height: int = 128, width: int = 160, depth_min: float = 425.0,
                        depth_interval: float = 2.5, num_depth: int = 48,
                        num_lights: int = 7, seed: int = 0,
-                       layout: str = "train") -> None:
+                       layout: str = "train", image_ext: str = "jpg") -> None:
     """Create a DTU-layout tree under ``root``.
 
     ``layout="train"``: the training release, shared ``Cameras/`` (cams +
@@ -197,10 +198,14 @@ def make_synthetic_dtu(root: str, scans: Sequence[int] = (1,), num_views: int = 
     depth map sees the planes shifted by its disparity).
     ``layout="eval"``: the eval release,
     ``Eval/scan{n}/{images,cams}/{view:08d}.{jpg,txt}`` and a per-scan
-    ``pair.txt``, no depth. The scene is the two textured half-planes of
-    ``make_scene_batch``."""
+    ``pair.txt``, no depth; ``image_ext="png"`` writes its images as PNGs
+    instead (both packages' test sets read ``{view:08d}.png`` where there
+    is no JPEG), so that readers of both packages see the same pixels. The
+    scene is the two textured half-planes of ``make_scene_batch``."""
     if layout not in ("train", "eval"):
         raise ValueError(f"layout {layout!r}: want 'train' or 'eval'")
+    if image_ext not in ("jpg", "png"):
+        raise ValueError(f"image_ext {image_ext!r}: want 'jpg' or 'png'")
     rng = np.random.RandomState(seed)
     cams, f, baseline = _make_cams(num_views, height, width, depth_min,
                                    depth_interval, num_depth)
@@ -231,7 +236,8 @@ def make_synthetic_dtu(root: str, scans: Sequence[int] = (1,), num_views: int = 
         for v in range(num_views):
             img = _render_u8(v, f, baseline, height, width, d_lo, d_hi, tex_l, tex_r)
             if layout == "eval":
-                write_jpeg(os.path.join(img_dir, f"{v:08d}.jpg"), img)
+                write = write_png if image_ext == "png" else write_jpeg
+                write(os.path.join(img_dir, f"{v:08d}.{image_ext}"), img)
                 continue
             for light in range(num_lights):
                 gain = 0.75 + 0.08 * light
@@ -243,3 +249,21 @@ def make_synthetic_dtu(root: str, scans: Sequence[int] = (1,), num_views: int = 
                 disp = int(round(f * (v * baseline) / d))
                 depth[:, max(0, x0 - disp):max(0, x1 - disp)] = d
             write_pfm(os.path.join(dep_dir, f"depth_map_{v:04d}.pfm"), depth)
+
+
+def true_cloud(root: str, views: int, scan: int = 1, stride: int = 1) -> np.ndarray:
+    """The scene's true points: every ``stride``-th pixel in x and y of each
+    view's true depth map (``Depths/scan{n}_train`` of a training-release
+    tree that ``make_synthetic_dtu`` wrote) back-projected through its
+    camera, pixel (x, y) at integer coordinates as fusion takes them. →
+    (N, 3) float32."""
+    pts = []
+    for v in range(views):
+        d = load_pfm(os.path.join(root, "Depths", f"scan{scan}_train",
+                                  f"depth_map_{v:04d}.pfm")).astype(np.float64)
+        cam = load_cam(os.path.join(root, "Cameras", f"{v:08d}_cam.txt")).astype(np.float64)
+        ys, xs = np.mgrid[0:d.shape[0]:stride, 0:d.shape[1]:stride]
+        uv1 = np.stack([xs.ravel(), ys.ravel(), np.ones(xs.size)], 1)
+        pc = uv1 @ np.linalg.inv(cam[1, :3, :3]).T * d[ys, xs].ravel()[:, None]
+        pts.append((pc - cam[0, :3, 3]) @ cam[0, :3, :3])
+    return np.concatenate(pts).astype(np.float32)
