@@ -20,6 +20,11 @@ TPU's VMEM, and unbanded in its training) and 0 are unbanded.
 map is banded), the kNN indices alone and EdgeConv's gather path (the
 masked-max fast path is eval only), the image pyramid run anew for every
 flow iteration, and no gradient into the kNN or ``flowN_input``.
+
+Under a profiler (``utils/profiler.py::span``) the forward is a
+``model.coarse`` span and one ``model.flow<n>`` span per iteration; each
+PointFlow call (each band, where banded) is ``point_flow.fetch``,
+``point_flow.knn``, ``point_flow.edge_conv`` and ``point_flow.head``.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from pointmvsnet_tpu_torch.ops.sampling import (
 )
 from pointmvsnet_tpu_torch.parallel import distributed
 from pointmvsnet_tpu_torch.parallel.view_parallel import view_sharded_plane_sweep
+from pointmvsnet_tpu_torch.utils import profiler
 
 HALO = 8     # rows above and below a flow band: ≥ the ±6-row reach of three EdgeConvs
 
@@ -131,42 +137,46 @@ class PointFlow(nn.Module):
         g = 2 * self.m + 1
         n = h * w
         full_h = full_h or h
-        offsets = torch.arange(g, dtype=cur_depth.dtype, device=cur_depth.device) - self.m
-        x, hyp_depth = hypothesis_points(cur_depth, step, self.m, ref_cam, y_offset)
+        with profiler.span("point_flow.fetch"):
+            x, hyp_depth = hypothesis_points(cur_depth, step, self.m, ref_cam, y_offset)
 
-        # the reference view projects every hypothesis back onto its scaled
-        # pixel grid: one regular-grid resample shared by the G hypotheses
-        # (masked where the depth is non-positive); only the V−1 source
-        # views need point gathers
-        nv = levels[0].shape[1]
-        ref_valid = (hyp_depth > 0).reshape(b, g, n)[..., None]
-        ref_parts = []
-        for fmap in levels:
-            rh, rw = fmap.shape[2], fmap.shape[3]
-            ref_s = regular_grid_sample(fmap[:, 0], rw / w, rh / full_h, h, w, y_offset)
-            ref_parts.append(torch.where(ref_valid, ref_s[:, None], 0.0)
-                             .reshape(b, g * n, -1))
-        ref_all = torch.cat(ref_parts, dim=-1)                  # (B, G·N, ΣC)
-        s1, s2 = fetch_features_perlevel([f[:, 1:] for f in levels], x,
-                                         cams_levels[0][:, 1:])
-        mean = (ref_all + s1) / nv
-        sq_mean = (ref_all.square() + s2) / nv
-        point_feat = sq_mean - mean.square()
+            # the reference view projects every hypothesis back onto its
+            # scaled pixel grid: one regular-grid resample shared by the G
+            # hypotheses (masked where the depth is non-positive); only the
+            # V−1 source views need point gathers
+            nv = levels[0].shape[1]
+            ref_valid = (hyp_depth > 0).reshape(b, g, n)[..., None]
+            ref_parts = []
+            for fmap in levels:
+                rh, rw = fmap.shape[2], fmap.shape[3]
+                ref_s = regular_grid_sample(fmap[:, 0], rw / w, rh / full_h, h, w, y_offset)
+                ref_parts.append(torch.where(ref_valid, ref_s[:, None], 0.0)
+                                 .reshape(b, g * n, -1))
+            ref_all = torch.cat(ref_parts, dim=-1)              # (B, G·N, ΣC)
+            s1, s2 = fetch_features_perlevel([f[:, 1:] for f in levels], x,
+                                             cams_levels[0][:, 1:])
+            mean = (ref_all + s1) / nv
+            sq_mean = (ref_all.square() + s2) / nv
+            point_feat = sq_mean - mean.square()
 
-        pts = x.detach().float().contiguous()
-        if self.training:
-            idx, mask = window_knn_idx(pts, (g, h, w), self.k, self.window), None
-        else:
-            idx, mask = window_knn_mask(pts, (g, h, w), self.k, self.window)
-        edge_outs = []
-        y = point_feat
-        for ec in self.edge_convs:
-            y = ec(y, idx, mask=mask, grid_shape=(g, h, w), window=self.window)
-            edge_outs.append(y)
-        logits = self.head(torch.cat(edge_outs, dim=-1))        # (B, G·N, 1)
-        prob = torch.softmax(logits.reshape(b, g, n), dim=1)
-        residual = torch.einsum("bgn,g->bn", prob.float(), offsets) * step[:, None]
-        return cur_depth + residual.reshape(b, h, w)
+        with profiler.span("point_flow.knn"):
+            pts = x.detach().float().contiguous()
+            if self.training:
+                idx, mask = window_knn_idx(pts, (g, h, w), self.k, self.window), None
+            else:
+                idx, mask = window_knn_mask(pts, (g, h, w), self.k, self.window)
+        with profiler.span("point_flow.edge_conv"):
+            edge_outs = []
+            y = point_feat
+            for ec in self.edge_convs:
+                y = ec(y, idx, mask=mask, grid_shape=(g, h, w), window=self.window)
+                edge_outs.append(y)
+        with profiler.span("point_flow.head"):
+            logits = self.head(torch.cat(edge_outs, dim=-1))    # (B, G·N, 1)
+            prob = torch.softmax(logits.reshape(b, g, n), dim=1)
+            offsets = torch.arange(g, dtype=cur_depth.dtype, device=cur_depth.device) - self.m
+            residual = torch.einsum("bgn,g->bn", prob.float(), offsets) * step[:, None]
+            return cur_depth + residual.reshape(b, h, w)
 
 
 def banded_point_flow(flow: PointFlow, levels: List[torch.Tensor],
@@ -269,49 +279,50 @@ class PointMVSNet(nn.Module):
         if num_virtual_plane % 8:
             raise ValueError(f"num_virtual_plane={num_virtual_plane} must be "
                              f"divisible by 8 (volume U-Net strides)")
-        images = images.to(self.dtype)
-        cams = cams.float()
-
         # ---------------- coarse stage -----------------------------------
-        ch = int(height * self.coarse_img_scale)
-        cw = int(width * self.coarse_img_scale)
-        # kept: an eval flow iteration at the coarse scale reuses it (in
-        # training every run of ImageConv blends its own BN statistics)
-        coarse_pyr = self._pyramid(_resize_views(images, ch, cw))
-        feats = coarse_pyr["conv2"]                              # (B, V, fh, fw, C)
-        fh, fw = feats.shape[2], feats.shape[3]
-        cams_feat = scale_cams(cams, fw / width, fh / height)
-        d_min, d_int, _, _ = cam_depth_range(cams[:, 0])
-        depths = depth_hypotheses(d_min, d_int, num_virtual_plane)
-        if self.view_group is not None:
-            cost = view_sharded_plane_sweep(feats, cams_feat, cams_feat[:, 0], depths,
-                                            self.view_group)
-        else:
-            cost = plane_sweep_volume(feats, cams_feat, depths)
-        logits = self.vol_conv(cost)[..., 0]                     # (B, D, fh, fw)
-        prob = torch.softmax(logits.float(), dim=1)
-        cur = depth_regression(prob, depths)
-        preds: Dict[str, torch.Tensor] = {
-            "coarse_depth_map": cur,
-            "coarse_prob_map": photometric_confidence(prob),
-        }
+        with profiler.span("model.coarse"):
+            images = images.to(self.dtype)
+            cams = cams.float()
+            ch = int(height * self.coarse_img_scale)
+            cw = int(width * self.coarse_img_scale)
+            # kept: an eval flow iteration at the coarse scale reuses it (in
+            # training every run of ImageConv blends its own BN statistics)
+            coarse_pyr = self._pyramid(_resize_views(images, ch, cw))
+            feats = coarse_pyr["conv2"]                          # (B, V, fh, fw, C)
+            fh, fw = feats.shape[2], feats.shape[3]
+            cams_feat = scale_cams(cams, fw / width, fh / height)
+            d_min, d_int, _, _ = cam_depth_range(cams[:, 0])
+            depths = depth_hypotheses(d_min, d_int, num_virtual_plane)
+            if self.view_group is not None:
+                cost = view_sharded_plane_sweep(feats, cams_feat, cams_feat[:, 0], depths,
+                                                self.view_group)
+            else:
+                cost = plane_sweep_volume(feats, cams_feat, depths)
+            logits = self.vol_conv(cost)[..., 0]                 # (B, D, fh, fw)
+            prob = torch.softmax(logits.float(), dim=1)
+            cur = depth_regression(prob, depths)
+            preds: Dict[str, torch.Tensor] = {
+                "coarse_depth_map": cur,
+                "coarse_prob_map": photometric_confidence(prob),
+            }
         if not is_flow:
             return preds
 
         # ---------------- PointFlow iterations ---------------------------
         for it, (s, inter_s) in enumerate(zip(img_scales, inter_scales)):
-            th, tw = int(height * s), int(width * s)
-            if not self.training and (th, tw) == (ch, cw):
-                pyr = coarse_pyr
-            else:
-                pyr = self._pyramid(_resize_views(images, th, tw))
-            levels = [pyr["conv0"], pyr["conv1"], pyr["conv2"]]
-            cams_levels = [scale_cams(cams, lvl.shape[3] / width, lvl.shape[2] / height)
-                           for lvl in levels]
-            ref_cam = scale_cams(cams[:, 0], tw / width, th / height)
-            cur = resize_bilinear(cur, th, tw)
-            preds[f"flow{it + 1}_input"] = cur.detach()
-            cur = banded_point_flow(self.point_flow, levels, cams_levels, ref_cam, cur,
-                                    d_int * inter_s, self.flow_chunk_rows, self.band_group)
-            preds[f"flow{it + 1}"] = cur
+            with profiler.span(f"model.flow{it + 1}"):
+                th, tw = int(height * s), int(width * s)
+                if not self.training and (th, tw) == (ch, cw):
+                    pyr = coarse_pyr
+                else:
+                    pyr = self._pyramid(_resize_views(images, th, tw))
+                levels = [pyr["conv0"], pyr["conv1"], pyr["conv2"]]
+                cams_levels = [scale_cams(cams, lvl.shape[3] / width, lvl.shape[2] / height)
+                               for lvl in levels]
+                ref_cam = scale_cams(cams[:, 0], tw / width, th / height)
+                cur = resize_bilinear(cur, th, tw)
+                preds[f"flow{it + 1}_input"] = cur.detach()
+                cur = banded_point_flow(self.point_flow, levels, cams_levels, ref_cam, cur,
+                                        d_int * inter_s, self.flow_chunk_rows, self.band_group)
+                preds[f"flow{it + 1}"] = cur
         return preds

@@ -17,6 +17,12 @@ wrapper: it averages gradients, and it overlaps its bucket reductions with
 a backward that issues sync-BN's collectives inside EdgeConv's
 checkpointed recompute. The losses and metrics a step returns are the
 global values on every rank.
+
+Under a profiler (``utils/profiler.py::span``) a train step is four spans:
+``train_step.forward``, ``train_step.loss``, ``train_step.backward`` (its
+kernels are launched by autograd's thread while the span is open) and
+``train_step.optimizer`` (the gradient all-reduce, the optimizer and the
+global losses).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from pointmvsnet_tpu_torch.parallel import distributed
+from pointmvsnet_tpu_torch.utils import profiler
 from pointmvsnet_tpu_torch.utils.solver import Optimizer
 
 BATCH_KEYS = ("images", "cams", "gt_depth")
@@ -84,14 +91,18 @@ def make_train_step(loss_fn: Callable, model_kwargs: Dict[str, Any]) -> Callable
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model
-        model.train()
-        model.zero_grad(set_to_none=True)
-        preds = model(batch["images"], batch["cams"], **model_kwargs)
-        losses = loss_fn(preds, batch["gt_depth"], batch["cams"], sharded=True)
-        losses["total_loss"].backward()
-        state.optimizer.step(all_reduce_grads(model))
-        state.step += 1
-        out = _global(losses)
+        with profiler.span("train_step.forward"):
+            model.train()
+            model.zero_grad(set_to_none=True)
+            preds = model(batch["images"], batch["cams"], **model_kwargs)
+        with profiler.span("train_step.loss"):
+            losses = loss_fn(preds, batch["gt_depth"], batch["cams"], sharded=True)
+        with profiler.span("train_step.backward"):
+            losses["total_loss"].backward()
+        with profiler.span("train_step.optimizer"):
+            state.optimizer.step(all_reduce_grads(model))
+            state.step += 1
+            out = _global(losses)
         out["skipped_steps"] = state.optimizer.skipped_steps
         out["consecutive_skipped"] = state.optimizer.consecutive_skipped
         return state, out

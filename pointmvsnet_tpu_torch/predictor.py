@@ -14,6 +14,10 @@ from ``cfg.RNG_SEED`` (``utils.convert.init_params``). Runs on CUDA unless
 eval grid (``parallel.distributed.make_eval_grid``) whose band and view
 groups share out each prediction; every rank of the group calls the
 predictor with the same request and gets the same answer.
+
+Under a profiler a call is four spans (``utils/profiler.py::span``):
+``predictor.prepare`` (the host's crop and normalization),
+``predictor.to_device``, ``predictor.model`` and ``predictor.to_host``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from pointmvsnet_tpu_torch import disable_tf32
 from pointmvsnet_tpu_torch.dataset.preprocess import crop_mvs_input, norm_image
 from pointmvsnet_tpu_torch.models import build_model
+from pointmvsnet_tpu_torch.utils import profiler
 from pointmvsnet_tpu_torch.utils.checkpoint import load_weights
 from pointmvsnet_tpu_torch.utils.convert import init_params
 
@@ -56,19 +61,24 @@ class Predictor:
     def __call__(self, images: np.ndarray, cams: np.ndarray) -> Dict[str, np.ndarray]:
         """images (V, H, W, 3) float or uint8; cams (V, 2, 4, 4) → dict with
         ``depth`` (h, w), ``confidence`` (hc, wc) and every raw stage."""
-        images = np.asarray(images, np.float32)
-        cams = np.asarray(cams, np.float32)
-        imgs, cms = crop_mvs_input(list(images), list(cams),
-                                   images.shape[1], images.shape[2], base=64)
-        if self.normalize:
-            imgs = [norm_image(im) for im in imgs]
-        batch_imgs = torch.from_numpy(np.stack(imgs)[None]).to(self.device)
-        batch_cams = torch.from_numpy(np.stack(cms)[None]).to(self.device)
+        with profiler.span("predictor.prepare"):
+            images = np.asarray(images, np.float32)
+            cams = np.asarray(cams, np.float32)
+            imgs, cms = crop_mvs_input(list(images), list(cams),
+                                       images.shape[1], images.shape[2], base=64)
+            if self.normalize:
+                imgs = [norm_image(im) for im in imgs]
+            imgs, cms = np.stack(imgs)[None], np.stack(cms)[None]
+        with profiler.span("predictor.to_device"):
+            batch_imgs = torch.from_numpy(imgs).to(self.device)
+            batch_cams = torch.from_numpy(cms).to(self.device)
         with torch.inference_mode():
-            preds = self.model(batch_imgs, batch_cams, **self.kwargs)
-            preds = {k: v[0].float().cpu().numpy() for k, v in preds.items()}
-        flow_keys = sorted(k for k in preds
-                           if k.startswith("flow") and not k.endswith("_input"))
-        preds["depth"] = preds[flow_keys[-1] if flow_keys else "coarse_depth_map"]
-        preds["confidence"] = preds["coarse_prob_map"]
+            with profiler.span("predictor.model"):
+                preds = self.model(batch_imgs, batch_cams, **self.kwargs)
+            with profiler.span("predictor.to_host"):
+                preds = {k: v[0].float().cpu().numpy() for k, v in preds.items()}
+                flow_keys = sorted(k for k in preds
+                                   if k.startswith("flow") and not k.endswith("_input"))
+                preds["depth"] = preds[flow_keys[-1] if flow_keys else "coarse_depth_map"]
+                preds["confidence"] = preds["coarse_prob_map"]
         return preds

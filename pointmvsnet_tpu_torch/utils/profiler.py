@@ -9,6 +9,12 @@
 * ``train_stage_latencies`` does the same for a train step: forward,
   backward, optimizer, and the coarse-only step against the whole one.
 * ``trace`` records the enclosed block with ``torch.profiler``.
+* ``span`` names a phase of the program (``pmvs.<name>``) for whatever
+  ``torch.profiler`` is recording: ``trace``, a benchmark's or an
+  operator's own. The spans are ``record_function`` ranges, so they land
+  in the same trace as the kernels, on the same clock, and each kernel's
+  launch falls inside the spans that were open when the host issued it.
+  With no profiler recording a span is one check and a shared no-op.
 
 Each timed call ends in ``torch.cuda.synchronize`` on the card (host
 timing of the finished work on the CPU); a time is the median of
@@ -24,6 +30,18 @@ from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
 import torch
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function("pmvs." + name)`` while a profiler records, else a
+    shared no-op context. Nesting and order tie a request or a step
+    together in the trace."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function("pmvs." + name)
 
 
 def _timed(fn: Callable[[], Any], device: torch.device, iters: int = 5) -> float:
@@ -122,7 +140,8 @@ def train_stage_latencies(state, loss_fn: Callable, batch: Dict[str, torch.Tenso
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``torch.profiler`` over the enclosed block (the card's kernels too
-    where there is one) → ``log_dir/trace.json``, a Chrome trace."""
+    where there is one) → ``log_dir/trace.json``, a Chrome trace that
+    holds the program's ``pmvs.`` spans (``span``)."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(log_dir, exist_ok=True)
