@@ -13,9 +13,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            and export phases check that it did (flags off after
            ``Predictor``, ``train()`` and ``test.test``, each entered with
            TF32 allowed), so every f32 gate holds for what users get.
-2. build   nvcc builds the five kernel sources in csrc/, in parallel: the
+2. build   nvcc builds the six kernel sources in csrc/, in parallel: the
            tuned kNN and masked max, their general kernels, the probe's
-           row gather.
+           row gather, PointFlow's fused fetch.
 3. dataplane  the C++ host data plane (native/src/dataplane.cpp and
            image.cpp): g++'s version, flags and build time; the C path
            bit-equal to the Python readers on this host (its numpy may
@@ -45,6 +45,12 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            f32, at widths that take its vector and its scalar path; each
            against the plain version on the card and (on the small grids)
            on the CPU, NaN positions first, then the bits of the rest.
+   point-fetch  PointFlow's fused fetch (csrc/point_fetch.cu) bit-equal to
+           the composition it replaces on seeded inputs meant to break it
+           (B=2, V-1 of 2 and 4, bf16 and f32 levels, every channel
+           chunk), in the paper-eval and T&T forwards (each call, flow1-3,
+           3 launches a map) and at FLOW_CHUNK_ROWS 64; its CUPTI time per
+           call and per map beside the composition's and the bound.
 5. gather  the probe's windowed row gather (csrc/window_gather.cu) against
            its plain version, bit-equal, at the probe's default shape and
            at one whose rows fill the upper slab and the padded last
@@ -253,8 +259,8 @@ per banded request; per KNN 8 request and banded
 train step; per T&T map and sweep token, with the time, plain time
 and bound per T&T map at 1280x1024 and 1920x1024), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. ``--phases
-dataplane,train,train-bf16,learn,train-dp,export-dtu,weights,trained,parallel-eval,envelope,tanks,bench``
-(any subset of the twelve) runs only those, to try them on the card, and
+dataplane,point-fetch,train,train-bf16,learn,train-dp,export-dtu,weights,trained,parallel-eval,envelope,tanks,bench``
+(any subset of the thirteen) runs only those, to try them on the card, and
 prints no result lines. Imports nothing of JAX.
 """
 
@@ -596,6 +602,196 @@ def phase_gather(dev):
                 probe_launches=wg.launches - g0)
 
 
+PF_WIDTHS = [(8, 16, 32), (4, 8, 16), (2, 4, 8), (3, 6, 12)]   # 8, 4, 2, 1 channels a thread
+
+
+def fetch_cases(b: int, v: int, widths, h: int, w: int, dtype, dev, seed: int) -> tuple:
+    """Seeded ``point_fetch_cuda`` arguments at an (h, w) flow grid (G = 5,
+    level l at (h, w) / 2^l) meant to break it: uv over the image and a
+    3-pixel margin at random fractions, and for a share of the points on
+    the last column or row exactly (level 0's taps i0 + 1 or j0 + 1
+    outside), at integers, at negative fractions in (−1, 0), far outside
+    (1e9); z negative, +0 or −0 (behind or on the camera plane) for another
+    share; hypothesis depths ≤ 0 for about half; features and reference
+    samples of both signs."""
+    gen = torch.Generator().manual_seed(seed)
+    n = h * w
+    shape = (b, v - 1, G * n)
+    levels = [torch.randn(b, v, h >> l, w >> l, c, generator=gen).to(dtype)
+              for l, c in enumerate(widths)]
+    u = torch.rand(shape, generator=gen) * (w + 6) - 3
+    y = torch.rand(shape, generator=gen) * (h + 6) - 3
+    kind = torch.randint(0, 12, shape, generator=gen)
+    u = torch.where(kind == 1, float(w - 1), u)
+    y = torch.where(kind == 2, float(h - 1), y)
+    u, y = torch.where(kind == 3, u.round(), u), torch.where(kind == 3, y.round(), y)
+    u = torch.where(kind == 4, -torch.rand(shape, generator=gen), u)
+    y = torch.where(kind == 5, -torch.rand(shape, generator=gen), y)
+    u = torch.where(kind == 6, 1e9, u)
+    z = torch.rand(shape, generator=gen) * 500 + 1
+    z = torch.where(kind == 7, -z, z)
+    z = torch.where(kind == 8, 0.0, z)
+    z = torch.where(kind == 9, -0.0, z)
+    refs = [torch.randn(b, n, c, generator=gen) for c in widths]
+    hyp = torch.randn(b, G, n, generator=gen)
+    return ([f.to(dev) for f in levels], torch.stack([u, y], -1).to(dev), z.to(dev),
+            [r.to(dev) for r in refs], hyp.to(dev))
+
+
+def point_fetch_bound(levels, uv, z, refs, hyp):
+    """(bytes, flops) of one fused fetch: uv, z, the hypothesis depths, the
+    source views of every level and the reference samples in, each once,
+    the variance out in the levels' dtype; per (point, channel) 10·(V−1) + 5
+    operations (a source view's blend 7, its square and two sums; the
+    reference's square, two sums, two products by 1/V, the mean's square
+    and the difference, less the first view's two sums)."""
+    b, g, n = hyp.shape
+    s, ctot = levels[0].shape[1] - 1, sum(f.shape[4] for f in levels)
+    out = b * g * n * ctot
+    nbytes = (4 * (uv.numel() + z.numel() + hyp.numel() + sum(r.numel() for r in refs))
+              + sum(f[:, 1:].numel() * f.element_size() for f in levels)
+              + out * levels[0].element_size())
+    return nbytes, out * (10 * s + 5)
+
+
+class record_fetch_calls:
+    """Inside the block, the model's calls of ``point_fetch_cuda`` are
+    recorded with their arguments and outputs."""
+
+    def __enter__(self):
+        from pointmvsnet_tpu_torch.ops import sampling
+        self.calls, self.fn = [], sampling.point_fetch_cuda
+
+        def call(*args):
+            out = self.fn(*args)
+            self.calls.append((args, out))
+            return out
+        sampling.point_fetch_cuda = call
+        return self.calls
+
+    def __exit__(self, *exc):
+        from pointmvsnet_tpu_torch.ops import sampling
+        sampling.point_fetch_cuda = self.fn
+
+
+@contextlib.contextmanager
+def fetch_composition():
+    """Inside the block the model takes the fetch's composition on the card."""
+    from pointmvsnet_tpu_torch.ops import sampling
+    rule = sampling.fetch_kernel_applies
+    sampling.fetch_kernel_applies = lambda *t: False
+    try:
+        yield
+    finally:
+        sampling.fetch_kernel_applies = rule
+
+
+def phase_point_fetch(dev) -> tuple:
+    """PointFlow's fused fetch (csrc/point_fetch.cu) against the composition
+    it replaces (``point_fetch_plain``) on the card, bit for bit (NaN
+    positions, then every bit, the sign of zero included): on
+    ``fetch_cases`` at B = 2, V − 1 of 2 and 4, bf16 and f32 levels, at
+    channel widths that take 8, 4, 2 and 1 channels a thread, on a 40x56
+    and a 37x53 grid; then the
+    paper-eval forward (640x512, V=5, D=96, bf16, ``bench.headline``) and
+    the Tanks & Temples one (1920x1024), each kernel call against the
+    composition on its inputs and flow1-3 against the forward with the
+    composition, with 3 launches a map; and the paper-eval forward at
+    FLOW_CHUNK_ROWS 64 (bands with their y_offset), flow1-3 bit-equal to the
+    composition's, a launch per band. Prints the kernel's CUPTI ms, the
+    bound and the composition's ms (CUDA events) per call and per map at
+    the paper-eval and T&T flow grids. → ({grid: (ms, plain_ms, bound_ms,
+    source)} per map, the largest |kernel − composition| of every call)."""
+    import gc
+
+    from pointmvsnet_tpu_torch import bench
+    from pointmvsnet_tpu_torch.ops import sampling
+    from pointmvsnet_tpu_torch.ops.sampling import point_fetch_cuda, point_fetch_plain
+
+    err = [0.0]
+
+    def held(out, args, what):
+        want = point_fetch_plain(*args)
+        nan = torch.isnan(out) | torch.isnan(want)
+        diff = (out.float() - want.float()).abs()[~nan]
+        most = float(diff.max()) if diff.numel() else 0.0
+        err[0] = max(err[0], most)
+        if not same_bits(out, want):
+            fail(f"point-fetch {what}: kernel != composition ({int((diff > 0).sum())} of "
+                 f"{out.numel()} differ, most by {most})")
+
+    met = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in (2, 4):
+            for widths in PF_WIDTHS if s == 4 else PF_WIDTHS[:1]:
+                for h, w in ((40, 56), (37, 53)):
+                    args = fetch_cases(2, s + 1, widths, h, w, dtype, dev, seed=met)
+                    out = point_fetch_cuda(*args)
+                    torch.cuda.synchronize()
+                    held(out, args, f"cases {str(dtype)[6:]}, V-1={s}, widths {widths}, "
+                                    f"grid {h}x{w}")
+                    met += 1
+    print(f"point-fetch: {met} seeded cases bit-equal to the composition (B=2, V-1 2 and 4, "
+          f"bf16 and f32 levels, widths {PF_WIDTHS}, last row / column, negative fractions, "
+          f"far outside, z <= 0 and -0, hypothesis depths <= 0)", flush=True)
+
+    per_map = {}
+    for label, (h, w) in (("paper-eval", (512, 640)), ("tanks", (1024, 1920))):
+        cfg, model, images, cams, kwargs = bench.headline("cuda", 1, 5, h, w, 96)
+        with torch.inference_mode():
+            with fetch_composition():
+                want = model(images, cams, **kwargs)
+            sampling.launches = 0
+            with record_fetch_calls() as calls:
+                got = model(images, cams, **kwargs)
+            torch.cuda.synchronize()
+        n = sampling.launches
+        check(n == 3 and len(calls) == 3, f"point-fetch {label}: {n} launches a map, want 3")
+        for key in ("flow1", "flow2", "flow3"):
+            check(same_bits(got[key], want[key]),
+                  f"point-fetch {label}: {key} differs from the composition's")
+        tot = [0.0, 0.0, 0.0]
+        how = set()
+        for i, (args, out) in enumerate(calls, 1):
+            held(out, args, f"{label} flow{i}")
+            ms, src = cupti_ms(lambda: point_fetch_cuda(*args), "point_fetch")
+            pms = time_ms(lambda: point_fetch_plain(*args), reps=3, warmup=1)
+            bb, by = bound_ms(*point_fetch_bound(*args))
+            grid = tuple(args[4].shape[1:])
+            print(f"point-fetch: {label} flow{i} (G, n) {grid}: bit-equal; kernel {ms:.4f} ms "
+                  f"({src}), composition {pms:.3f} ms, bound {bb:.4f} ms ({by})", flush=True)
+            tot = [t + x for t, x in zip(tot, (ms, pms, bb))]
+            how.add(src)
+        per_map[label] = (*tot, "+".join(sorted(how)))
+        print(f"point-fetch: {label} {h}x{w}: 3 launches a map, flow1-3 bit-equal to the "
+              f"composition's; per map kernel {tot[0]:.4f} ms, composition {tot[1]:.3f} ms, "
+              f"bound {tot[2]:.4f} ms", flush=True)
+        del model, images, cams, want, got, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg, model = bench.build(chunk_rows=64)
+    bench._weights(cfg, model)
+    images, cams = bench.make_inputs(1, 5, 512, 640, 96)
+    kwargs = dict(is_flow=True, img_scales=tuple(cfg.MODEL.TEST.IMG_SCALES),
+                  inter_scales=tuple(cfg.MODEL.TEST.INTER_SCALES), num_virtual_plane=96)
+    with torch.inference_mode():
+        with fetch_composition():
+            want = model(images, cams, **kwargs)
+        sampling.launches = 0
+        got = model(images, cams, **kwargs)
+        torch.cuda.synchronize()
+    bands = sum(n_bands(int(512 * s), 64) for s in kwargs["img_scales"])
+    check(sampling.launches == bands,
+          f"point-fetch FLOW_CHUNK_ROWS 64: {sampling.launches} launches, want {bands}")
+    for key in ("flow1", "flow2", "flow3"):
+        check(same_bits(got[key], want[key]),
+              f"point-fetch FLOW_CHUNK_ROWS 64: {key} differs from the composition's")
+    print(f"point-fetch: paper-eval at FLOW_CHUNK_ROWS 64: {bands} launches (one a band), "
+          f"flow1-3 bit-equal to the composition's; {smi_line()}", flush=True)
+    return per_map, err[0]
+
+
 def with_model(cfg, overrides):
     """``cfg`` with MODEL.<key> = value for each of ``overrides``."""
     for key, value in (overrides or {}).items():
@@ -637,7 +833,7 @@ def phase_parity(overrides=None, what: str = "parity"):
 def phase_serve():
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
-    from pointmvsnet_tpu_torch.ops import edge, knn
+    from pointmvsnet_tpu_torch.ops import edge, knn, sampling
     from pointmvsnet_tpu_torch.predictor import Predictor
 
     cfg = get_default_cfg()
@@ -650,26 +846,27 @@ def phase_serve():
     torch.cuda.reset_peak_memory_stats()
     knn.launches = 0
     edge.launches = 0
+    sampling.launches = 0
     latencies = []
     for r in range(3):
-        k0, e0 = knn.launches, edge.launches
+        k0, e0, f0 = knn.launches, edge.launches, sampling.launches
         t0 = time.perf_counter()
         out = pred(images[0], cams[0])           # returns numpy: synchronized
         latencies.append((time.perf_counter() - t0) * 1e3)
-        nk, ne = knn.launches - k0, edge.launches - e0
-        check((nk, ne) == (3, 9), f"request {r}: {nk} kNN and {ne} masked-max launches, "
-                                  f"want 3 and 9")
+        nk, ne, nf = knn.launches - k0, edge.launches - e0, sampling.launches - f0
+        check((nk, ne, nf) == (3, 9, 3), f"request {r}: {nk} kNN, {ne} masked-max and {nf} "
+                                         f"point-fetch launches, want 3, 9 and 3")
         check(out["depth"].shape == (h, w) and out["confidence"].shape == (h // 8, w // 8),
               f"request {r}: shapes {out['depth'].shape} {out['confidence'].shape}")
         check(all(np.isfinite(a).all() for a in out.values()), f"request {r}: non-finite")
         print(f"serve: request {r}: {latencies[-1]:.1f} ms, launches knn {nk} "
-              f"masked_window_max {ne}, depth [{out['depth'].min():.2f}, "
+              f"masked_window_max {ne} point_fetch {nf}, depth [{out['depth'].min():.2f}, "
               f"{out['depth'].max():.2f}] (true {gt.min():.1f}/{gt.max():.1f})", flush=True)
     print(f"serve: 640x512 V={v} D={d} bf16, 3 flows: latency ms {latencies}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     profile_call(lambda: pred(images[0], cams[0]), "request")
-    return nk, ne                     # one request's launches (checked equal for all)
+    return nk, ne, nf                 # one request's launches (checked equal for all)
 
 
 def _train_step_once(dev, kw, batch, sd, knn_hook=None, overrides=None):
@@ -3155,7 +3352,7 @@ def tanks_sweep(dev, work: str) -> dict:
     return {tok: dict(res[tok], launches=got) for tok, got in zip(tokens, counted)}
 
 
-def tanks_kernels(dev) -> dict:
+def tanks_kernels(dev) -> tuple:
     """The paper-eval forward (bench.build, tt_sweep's KWARGS, weights
     seed 0) at each of TT_GRIDS unbanded, and at TT_GRIDS[0] at every
     FLOW_CHUNK_ROWS of TT_BANDS: launches per map by variant, no plain
@@ -3163,14 +3360,17 @@ def tanks_kernels(dev) -> dict:
     one; at each grid unbanded, every kernel call bit-equal to its plain
     version on its real inputs (NaN positions and the sign of zero
     included) and timed (CUPTI) beside the plain version and the bound.
-    → {"WxH": {name: (ms, plain_ms, bound_ms, source) per map}}."""
+    Also the launches of PointFlow's fused fetch, one a flow band. →
+    ({"WxH": {name: (ms, plain_ms, bound_ms, source) per map}}, {"WxH":
+    fused fetch launches of the unbanded map})."""
     import gc
 
     from pointmvsnet_tpu_torch.bench import build, make_inputs
     from pointmvsnet_tpu_torch.benchmarks.tt_sweep import KWARGS, VIEWS
+    from pointmvsnet_tpu_torch.ops import sampling
     from pointmvsnet_tpu_torch.utils.convert import init_params
 
-    weights, per_grid = None, {}
+    weights, per_grid, fetch_launches = None, {}, {}
     for (h, w), chunks in zip(TT_GRIDS, (TT_BANDS, (0,))):
         images, cams = make_inputs(1, VIEWS, h, w, KWARGS["num_virtual_plane"], device=dev)
         maps = {}
@@ -3180,6 +3380,7 @@ def tanks_kernels(dev) -> dict:
                 weights = init_params(model, torch.Generator().manual_seed(0))
             model.load_state_dict(weights)
             reset_launches()
+            sampling.launches = 0
             with torch.inference_mode(), forbid_plain_on_cuda(), \
                     (record_kernel_calls() if cr == 0 else contextlib.nullcontext()) as calls:
                 t0 = time.perf_counter()
@@ -3188,6 +3389,12 @@ def tanks_kernels(dev) -> dict:
                 ms = (time.perf_counter() - t0) * 1e3
             got, want = launch_counts(), tanks_want(h, cr)
             check(got == want, f"tanks {w}x{h} FLOW_CHUNK_ROWS={cr}: launches {got}, want {want}")
+            n_fetch = sampling.launches
+            check(n_fetch == want["window_knn"]["tuned"],
+                  f"tanks {w}x{h} FLOW_CHUNK_ROWS={cr}: {n_fetch} point-fetch launches, want "
+                  f"{want['window_knn']['tuned']} (one a flow band)")
+            if cr == 0:
+                fetch_launches[f"{w}x{h}"] = n_fetch
             check(all(bool(torch.isfinite(out[k]).all()) for k in ("coarse_depth_map", "flow3")),
                   f"tanks {w}x{h} FLOW_CHUNK_ROWS={cr}: non-finite maps")
             maps[cr] = {k: v for k, v in out.items() if not k.endswith("_input")}
@@ -3205,7 +3412,8 @@ def tanks_kernels(dev) -> dict:
                             for k, t in totals.items()))
             print(f"tanks: {w}x{h} V={VIEWS} D={KWARGS['num_virtual_plane']} bf16 "
                   f"FLOW_CHUNK_ROWS={cr}: launches per map kNN {got['window_knn']['tuned']} "
-                  f"masked-max {got['masked_window_max']['tuned']} (tuned), first forward "
+                  f"masked-max {got['masked_window_max']['tuned']} (tuned), point-fetch "
+                  f"{n_fetch}, first forward "
                   f"{ms:.1f} ms{note}; {smi_line()}", flush=True)
             del model, out, calls
             gc.collect()
@@ -3218,7 +3426,7 @@ def tanks_kernels(dev) -> dict:
             print(f"tanks: {w}x{h} FLOW_CHUNK_ROWS {chunks[1:]}: every map bit-equal to the "
                   f"unbanded one ({', '.join(maps[0])})", flush=True)
         del images, cams, maps
-    return per_grid
+    return per_grid, fetch_launches
 
 
 def tanks_export(dev, work: str) -> dict:
@@ -3413,12 +3621,12 @@ def phase_tanks(dev) -> dict:
     work = tempfile.mkdtemp(prefix="chip_smoke_tanks_")
     try:
         sweep = tanks_sweep(dev, work)
-        kernels = tanks_kernels(dev)
+        kernels, fetch_launches = tanks_kernels(dev)
         per_map = tanks_export(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"tanks: {time.perf_counter() - t0:.1f} s", flush=True)
-    return dict(sweep=sweep, kernels=kernels, per_map=per_map)
+    return dict(sweep=sweep, kernels=kernels, per_map=per_map, fetch_launches=fetch_launches)
 
 
 # ------------------------------------------------------------ bench
@@ -3566,7 +3774,8 @@ def profile_call(fn, what: str, top: int = 12):
               f"{e.key[:90]}", flush=True)
 
 
-PHASES = ["env", "build", "dataplane", "kernels", "adversarial", "gather", "parity", "serve",
+PHASES = ["env", "build", "dataplane", "kernels", "point-fetch", "adversarial", "gather",
+          "parity", "serve",
           "train", "train-parity", "export", "export-dtu", "weights", "trained", "fusion-scan",
           "train-bf16", "learn", "train-dp", "parallel-eval", "envelope", "tanks", "bench"]
 
@@ -3575,8 +3784,9 @@ def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
-                   help="comma-separated subset of dataplane,train,train-bf16,learn,train-dp,"
-                        "export-dtu,weights,trained,parallel-eval,envelope,tanks,bench to try "
+                   help="comma-separated subset of dataplane,point-fetch,train,train-bf16,"
+                        "learn,train-dp,export-dtu,weights,trained,parallel-eval,envelope,tanks,"
+                        "bench to try "
                         "on the card "
                         "(prints no result lines); default: every phase")
     args = p.parse_args(argv)
@@ -3624,6 +3834,8 @@ def main(argv=None) -> int:
         for name in phases[2:]:
             if name == "dataplane":
                 phase_dataplane()
+            elif name == "point-fetch":
+                phase_point_fetch(dev)
             elif name == "train-bf16":
                 phase_train_bf16(dev, per_train)
             elif name == "learn":
@@ -3652,10 +3864,11 @@ def main(argv=None) -> int:
         return 0
     phase_dataplane()
     tot = phase_kernels(dev)
+    fetch, fetch_err = phase_point_fetch(dev)
     phase_adversarial(dev)
     gat = phase_gather(dev)
     phase_parity()
-    n_knn, n_mwm = phase_serve()
+    n_knn, n_mwm, n_fetch = phase_serve()
     phase_bench(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_export_")
     try:
@@ -3756,6 +3969,19 @@ def main(argv=None) -> int:
             "ms_forced_at_tuned_shape": round(env["timing"][(f"{name}_general_at_tuned", 5)][0],
                                               5),
         })
+    rows.append({
+        "name": "point_fetch", "route": "cuda",
+        "source": "pointmvsnet_tpu_torch/csrc/point_fetch.cu",
+        "replaces": "none (the JAX package leaves the fetch to XLA)",
+        "launches": n_fetch, "max_abs_err": fetch_err,
+        "launches_per_tanks_map": tanks["fetch_launches"],
+        **{f"{key}_{label}": round(t[i], 5) for label, t in fetch.items()
+           for i, key in enumerate(("ms_per_map", "plain_ms_per_map", "bound_ms_per_map"))},
+        "ms_source": "+".join(sorted({t[3] for t in fetch.values()})),
+        "bound_by": "bytes", "library_ms": None,
+        "work": "one forward's three PointFlow fetches, bf16 levels and output, V=5, G=5",
+        "launches_per": "serving request (one a flow unbanded, one a band banded)",
+    })
     rows.append({
         "name": "window_gather", "route": "cuda",
         "source": "pointmvsnet_tpu_torch/csrc/window_gather.cu",

@@ -21,6 +21,12 @@ map is banded), the kNN indices alone and EdgeConv's gather path (the
 masked-max fast path is eval only), the image pyramid run anew for every
 flow iteration, and no gradient into the kNN or ``flowN_input``.
 
+PointFlow's fetch (``ops/sampling.py::point_fetch``) runs as one CUDA
+kernel where its inputs are CUDA tensors and no gradient is needed: every
+eval forward on the card, and a training forward under ``torch.no_grad``;
+the CPU and training under autograd take the composition it is bit-equal
+to.
+
 Under a profiler (``utils/profiler.py::span``) the forward is a
 ``model.coarse`` span and one ``model.flow<n>`` span per iteration; each
 PointFlow call (each band, where banded) is ``point_flow.fetch``,
@@ -54,11 +60,7 @@ from pointmvsnet_tpu_torch.ops.geometry import (
     unproject_pixels,
 )
 from pointmvsnet_tpu_torch.ops.knn import window_knn_idx, window_knn_mask
-from pointmvsnet_tpu_torch.ops.sampling import (
-    fetch_features_perlevel,
-    regular_grid_sample,
-    resize_bilinear,
-)
+from pointmvsnet_tpu_torch.ops.sampling import point_fetch, regular_grid_sample, resize_bilinear
 from pointmvsnet_tpu_torch.parallel import distributed
 from pointmvsnet_tpu_torch.parallel.view_parallel import view_sharded_plane_sweep
 from pointmvsnet_tpu_torch.utils import profiler
@@ -144,20 +146,9 @@ class PointFlow(nn.Module):
             # scaled pixel grid: one regular-grid resample shared by the G
             # hypotheses (masked where the depth is non-positive); only the
             # V−1 source views need point gathers
-            nv = levels[0].shape[1]
-            ref_valid = (hyp_depth > 0).reshape(b, g, n)[..., None]
-            ref_parts = []
-            for fmap in levels:
-                rh, rw = fmap.shape[2], fmap.shape[3]
-                ref_s = regular_grid_sample(fmap[:, 0], rw / w, rh / full_h, h, w, y_offset)
-                ref_parts.append(torch.where(ref_valid, ref_s[:, None], 0.0)
-                                 .reshape(b, g * n, -1))
-            ref_all = torch.cat(ref_parts, dim=-1)              # (B, G·N, ΣC)
-            s1, s2 = fetch_features_perlevel([f[:, 1:] for f in levels], x,
-                                             cams_levels[0][:, 1:])
-            mean = (ref_all + s1) / nv
-            sq_mean = (ref_all.square() + s2) / nv
-            point_feat = sq_mean - mean.square()
+            ref_s = [regular_grid_sample(f[:, 0], f.shape[3] / w, f.shape[2] / full_h, h, w,
+                                         y_offset) for f in levels]
+            point_feat = point_fetch(levels, x, cams_levels[0][:, 1:], ref_s, hyp_depth)
 
         with profiler.span("point_flow.knn"):
             pts = x.detach().float().contiguous()

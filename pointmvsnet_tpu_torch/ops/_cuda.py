@@ -42,6 +42,8 @@ SIGNATURES = {
         "masked_window_max_general": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                       _P]},
     "window_gather": {"window_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "point_fetch": {
+        "point_fetch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -36,6 +36,7 @@ import torch
 
 import pointmvsnet_tpu_torch.models.pointmvsnet as tpointmvsnet
 import pointmvsnet_tpu_torch.ops.cost_volume as tcost_volume
+import pointmvsnet_tpu_torch.ops.sampling as tsampling
 from pointmvsnet_tpu.config import get_default_cfg as jget_default_cfg
 from pointmvsnet_tpu.models import build_model as jbuild_model
 from pointmvsnet_tpu_torch import bench
@@ -443,12 +444,12 @@ def test_roofline_taps_equal_the_rows_the_port_gathers(monkeypatch):
         rgs.append((flow_iter[0] + 1, 2 * b * c * out_w * h * (w + out_h)))
         return real_rgs(feat, sx, sy, out_h, out_w, y_offset)
 
-    perlevel = in_stage(lambda: f"flow{flow_iter[0]}", tpointmvsnet.fetch_features_perlevel)
+    perlevel = in_stage(lambda: f"flow{flow_iter[0]}", tsampling.fetch_features_perlevel)
     real_rgs = tpointmvsnet.regular_grid_sample
     monkeypatch.setattr(torch.Tensor, "index_select", index_select)
     monkeypatch.setattr(tcost_volume, "fetch_features",
                         in_stage(lambda: "coarse", tcost_volume.fetch_features))
-    monkeypatch.setattr(tpointmvsnet, "fetch_features_perlevel", fetch_perlevel)
+    monkeypatch.setattr(tsampling, "fetch_features_perlevel", fetch_perlevel)
     monkeypatch.setattr(tpointmvsnet, "regular_grid_sample", regular_grid_sample)
     with tiny_bench(dtype=None):
         cfg, model, images, cams, kwargs = bench.headline("cpu", 1, V, H, W, D)
