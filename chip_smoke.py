@@ -830,6 +830,99 @@ def phase_parity(overrides=None, what: str = "parity"):
           f"confidence max {c:.3e}", flush=True)
 
 
+CAS_SIZE = (864, 1152)        # CasMVSNet's DTU test size (configs/casmvsnet_dtu.yaml)
+
+
+def phase_cascade(dev):
+    """CasMVSNet on the card: (1) the plane sweep's planes path bit-equal to
+    its per-pixel path given the planes broadcast over the pixels, at
+    Point-MVSNet's paper-eval coarse grid (bf16, 32 channels, 96 planes) and
+    at the cascade's stage-1 grid (48 planes); (2) the model through
+    ``Predictor`` at 864x1152, V=5, against the plain f32 reference
+    (``tests/casmvsnet_reference.py``) on the card, same weights (the
+    reference's BN statistics calibrated on a half-size scene): in f32 every
+    stage's depth within tests/test_full_parity.py's bars and the
+    confidence's mean |Δ| under 1e-3; in bf16 each stage's mean |Δ| within
+    3 times the bf16 reference's own."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import casmvsnet_reference as ref
+    from pointmvsnet_tpu_torch.config import load_cfg_from_file
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
+    from pointmvsnet_tpu_torch.ops.cost_volume import plane_sweep_volume
+    from pointmvsnet_tpu_torch.ops.geometry import depth_hypotheses
+    from pointmvsnet_tpu_torch.predictor import Predictor
+    from pointmvsnet_tpu_torch.utils.convert import init_params
+
+    h, w = CAS_SIZE
+    g = torch.Generator(device=dev).manual_seed(11)
+    for what, (fh, fw, d, c) in (("paper-eval coarse", (64, 80, 96, 32)),
+                                 ("cascade stage 1", (h // 4, w // 4, 48, 32))):
+        _, cams, _ = make_scene_batch(1, 5, fh, fw, d)
+        cams = torch.from_numpy(cams).to(dev)
+        feats = torch.randn(1, 5, fh, fw, c, device=dev, generator=g).to(torch.bfloat16)
+        planes = depth_hypotheses(cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 1], d)
+        with torch.inference_mode():
+            a = plane_sweep_volume(feats, cams, planes)
+            b = plane_sweep_volume(feats, cams, planes[:, :, None, None].expand(1, d, fh, fw)
+                                   .contiguous())
+        check(same_bits(a, b), f"cascade: {what}: the per-pixel sweep differs from the planes'")
+        print(f"cascade: {what} {fh}x{fw} D={d} C={c} bf16: the planes sweep is bit-equal to "
+              f"the per-pixel sweep of broadcast depths", flush=True)
+        del a, b, feats
+
+    planes = 192
+    images, cams, _ = make_scene_batch(1, 5, h, w, planes, depth_interval=2.65, seed=7)
+    small, small_cams, _ = make_scene_batch(1, 5, h // 64 * 32, w // 64 * 32, planes,
+                                            depth_interval=2.65, seed=8)
+    model_cfg = {"IMG_BASE_CHANNELS": 8, "VOL_BASE_CHANNELS": 8,
+                 "CASCADE": {"NDEPTHS": [48, 32, 8], "DEPTH_INTERVAL_RATIOS": [4.0, 2.0, 1.0]}}
+    f32 = ref.build(model_cfg)
+    f32.load_state_dict(init_params(f32, torch.Generator().manual_seed(5)))
+    f32 = f32.to(dev)
+    ref.calibrate_bn(f32, torch.from_numpy(small).to(dev), torch.from_numpy(small_cams).to(dev),
+                     planes)
+    with torch.no_grad():
+        want = {k: v[0].cpu().numpy() for k, v in
+                f32(torch.from_numpy(images).to(dev), torch.from_numpy(cams).to(dev),
+                    planes).items()}
+        low = ref.build(model_cfg, "bf16").to(dev)
+        low.load_state_dict(f32.state_dict())
+        low.eval()
+        scale = {k: v[0].cpu().numpy() for k, v in
+                 low(torch.from_numpy(images).to(dev), torch.from_numpy(cams).to(dev),
+                     planes).items()}
+    sd = ref.program_weights({k: v.cpu() for k, v in f32.state_dict().items()})
+    del f32, low
+    torch.cuda.empty_cache()
+    report = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = load_cfg_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                              "configs", "casmvsnet_dtu.yaml"))
+        cfg.MODEL.DTYPE = dtype
+        allow_tf32()
+        pred = Predictor(cfg, sd, device=dev.type, normalize=False)
+        check_f32(f"Predictor(casmvsnet, {dtype}) on {dev.type}")
+        got = pred(images[0], cams[0])
+        check(got["depth"].shape == (h, w), f"cascade: depth {got['depth'].shape}")
+        for s in (1, 2, 3):
+            for m in ("depth", "confidence"):
+                key = f"stage{s}_{m}"
+                d = np.abs(got[key] - want[key])
+                if dtype == "float32":
+                    ok = (d.max() < 0.05 and d.mean() < 0.005) if m == "depth" \
+                        else d.mean() < 1e-3
+                    report.append(f"f32 {key} max {d.max():.3e} mean {d.mean():.3e}")
+                else:
+                    own = float(np.abs(scale[key] - want[key]).mean())
+                    ok = d.mean() <= 3 * own
+                    report.append(f"bf16 {key} mean {d.mean():.3e} (bf16 reference {own:.3e})")
+                check(ok, f"cascade {dtype} {key}: max {d.max()} mean {d.mean()}")
+        del pred
+        torch.cuda.empty_cache()
+    print(f"cascade: Predictor at {h}x{w} V=5 (48, 32, 8) against the f32 reference on the "
+          f"card: {'; '.join(report)}; {smi_line()}", flush=True)
+
+
 def phase_serve():
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
@@ -3775,7 +3868,7 @@ def profile_call(fn, what: str, top: int = 12):
 
 
 PHASES = ["env", "build", "dataplane", "kernels", "point-fetch", "adversarial", "gather",
-          "parity", "serve",
+          "parity", "serve", "cascade",
           "train", "train-parity", "export", "export-dtu", "weights", "trained", "fusion-scan",
           "train-bf16", "learn", "train-dp", "parallel-eval", "envelope", "tanks", "bench"]
 
@@ -3784,7 +3877,8 @@ def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
-                   help="comma-separated subset of dataplane,point-fetch,train,train-bf16,"
+                   help="comma-separated subset of dataplane,point-fetch,parity,cascade,train,"
+                        "train-bf16,"
                         "learn,train-dp,export-dtu,weights,trained,parallel-eval,envelope,tanks,"
                         "bench to try "
                         "on the card "
@@ -3836,6 +3930,10 @@ def main(argv=None) -> int:
                 phase_dataplane()
             elif name == "point-fetch":
                 phase_point_fetch(dev)
+            elif name == "parity":
+                phase_parity()
+            elif name == "cascade":
+                phase_cascade(dev)
             elif name == "train-bf16":
                 phase_train_bf16(dev, per_train)
             elif name == "learn":
@@ -3869,6 +3967,7 @@ def main(argv=None) -> int:
     gat = phase_gather(dev)
     phase_parity()
     n_knn, n_mwm, n_fetch = phase_serve()
+    phase_cascade(dev)
     phase_bench(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_export_")
     try:

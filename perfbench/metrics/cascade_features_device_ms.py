@@ -1,0 +1,11 @@
+"""CasMVSNet's feature net (``cascade.features``: ImageConv's three levels
+and the FPN over every view) on the device, per map, in the span probe
+(``perfbench/spans.py``; the cascade driver's ``probe``), ms."""
+from perfbench import spans
+from perfbench.drivers import cascade
+
+collect = cascade.probe
+
+
+def read(run):
+    return spans.device_ms_per_item(run, "cascade.features")

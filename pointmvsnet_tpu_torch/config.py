@@ -226,6 +226,12 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.TEST = CfgNode()
     _C.MODEL.TEST.IMG_SCALES = (0.25, 0.5, 1.0)
     _C.MODEL.TEST.INTER_SCALES = (0.75, 0.375, 0.1875)
+    # CasMVSNet (MODEL.NAME casmvsnet; the port's addition): per stage, at
+    # 1/4, 1/2 and 1/1 of the image, the depth hypotheses and their
+    # spacing in units of (base depth range) / DATA.TEST.NUM_VIRTUAL_PLANE
+    _C.MODEL.CASCADE = CfgNode()
+    _C.MODEL.CASCADE.NDEPTHS = (48, 32, 8)
+    _C.MODEL.CASCADE.DEPTH_INTERVAL_RATIOS = (4.0, 2.0, 1.0)
 
     # Additions of the JAX package (no reference counterpart). Only DTYPE
     # steers the port; the others select TPU engines and must keep their

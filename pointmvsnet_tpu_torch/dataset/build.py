@@ -129,11 +129,13 @@ class RankShard:
         return self.dataset[self.rank + i * self.world]
 
 
-def build_data_loader(cfg, mode: str = "train", shard=None) -> DataLoader:
+def build_data_loader(cfg, mode: str = "train", shard=None, base: int = 64) -> DataLoader:
     """cfg → this rank's loader of the "train", "val" or "test" split
     (the whole split without a process group). ``shard`` (test split):
     (index, count) of this rank's share of the items, default (rank,
-    world size); on an eval grid (data index, data size)."""
+    world size); on an eval grid (data index, data size). ``base`` (test
+    split): the views are cropped to multiples of it (the model's
+    ``crop_base``)."""
     from pointmvsnet_tpu_torch.dataset.dtu import DTUTestDataset, DTUTrainValDataset
     from pointmvsnet_tpu_torch.parallel import distributed
 
@@ -143,7 +145,7 @@ def build_data_loader(cfg, mode: str = "train", shard=None) -> DataLoader:
         t = cfg.DATA.TEST
         kw = dict(num_view=t.NUM_VIEW, num_virtual_plane=t.NUM_VIRTUAL_PLANE,
                   interval_scale=t.INTERVAL_SCALE, img_height=t.IMG_HEIGHT,
-                  img_width=t.IMG_WIDTH)
+                  img_width=t.IMG_WIDTH, base=base)
         if t.DATASET == "tanks":
             from pointmvsnet_tpu_torch.dataset.tanks import TanksDataset
             ds = TanksDataset(t.ROOT_DIR, rescale_depth=t.RESCALE_DEPTH,

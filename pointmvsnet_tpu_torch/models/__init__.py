@@ -7,24 +7,33 @@ reinterpreting them. ``MODEL.FLOW_CHUNK_ROWS`` takes any band height ≥ -1;
 -1, the JAX package's AUTO height for the TPU's VMEM, is unbanded here.
 Where the JAX package's build functions return the triple (model,
 loss_fn, metric_fn), the port's return the model, and ``build_loss_fn`` /
-``pointmvsnet_metrics`` give the other two.
+``build_metric_fn`` give the other two, as ``register_model`` recorded
+them beside the builder.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from pointmvsnet_tpu_torch import resolve_device
+from pointmvsnet_tpu_torch.models.casmvsnet import CasMVSNet
 from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
 from pointmvsnet_tpu_torch.models.image_conv import ImageConv
-from pointmvsnet_tpu_torch.models.loss import pointmvsnet_loss, pointmvsnet_metrics
+from pointmvsnet_tpu_torch.models.loss import (
+    cascade_loss,
+    cascade_metrics,
+    pointmvsnet_loss,
+    pointmvsnet_metrics,
+)
 from pointmvsnet_tpu_torch.models.pointmvsnet import PointFlow, PointMVSNet
 from pointmvsnet_tpu_torch.models.volume_conv import VolumeConv
 
 MODEL_REGISTRY: Dict[str, Callable] = {}
+# MODEL.NAME → (cfg → its loss_fn, its metric_fn), from ``register_model``
+_HEADS: Dict[str, Tuple[Callable, Callable]] = {}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -53,9 +62,19 @@ def check_model_knobs(cfg) -> None:
                          f"(both unbanded)")
 
 
-def register_model(name: str):
+def _pointmvsnet_loss_fn(cfg) -> Callable:
+    return functools.partial(
+        pointmvsnet_loss,
+        valid_threshold=cfg.MODEL.VALID_THRESHOLD if cfg.MODEL.MASKED_LOSS else 0.0)
+
+
+def register_model(name: str, loss_fn: Callable = _pointmvsnet_loss_fn,
+                   metric_fn: Callable = pointmvsnet_metrics):
+    """Register a builder under ``name``, with ``loss_fn`` (cfg → the
+    model's ``loss(preds, gt_depth, cams)``) and its ``metric_fn``."""
     def deco(fn):
         MODEL_REGISTRY[name] = fn
+        _HEADS[name] = (loss_fn, metric_fn)
         return fn
     return deco
 
@@ -85,18 +104,41 @@ def build_pointmvsnet(cfg, band_group=None, view_group=None) -> PointMVSNet:
 @register_model("mvsnet")
 def build_mvsnet(cfg, band_group=None, view_group=None) -> PointMVSNet:
     """Coarse-only family: the same model, run with ``is_flow=False``."""
-    return build_pointmvsnet(cfg, band_group, view_group)
+    model = build_pointmvsnet(cfg, band_group, view_group)
+    model.coarse_only = True
+    return model
+
+
+@register_model("casmvsnet", loss_fn=lambda cfg: cascade_loss, metric_fn=cascade_metrics)
+def build_casmvsnet(cfg, band_group=None, view_group=None) -> CasMVSNet:
+    """CasMVSNet (eval): ``MODEL.CASCADE``'s depths and interval ratios per
+    stage, ``IMG_BASE_CHANNELS`` for the feature net, ``VOL_BASE_CHANNELS``
+    for each stage's U-Net."""
+    check_model_knobs(cfg)
+    if band_group is not None or view_group is not None:
+        raise ValueError("casmvsnet has no band- or view-parallel eval: PARALLEL.BAND "
+                         "and PARALLEL.VIEW must be 1")
+    c = cfg.MODEL.CASCADE
+    return CasMVSNet(img_base_channels=cfg.MODEL.IMG_BASE_CHANNELS,
+                     vol_base_channels=cfg.MODEL.VOL_BASE_CHANNELS,
+                     ndepths=tuple(c.NDEPTHS), interval_ratios=tuple(c.DEPTH_INTERVAL_RATIOS),
+                     norm=cfg.MODEL.NORM, dtype=_DTYPES[cfg.MODEL.DTYPE])
 
 
 def build_loss_fn(cfg) -> Callable:
-    """cfg → ``loss_fn(preds, gt_depth, cams)``, with the flow iterations'
-    reach mask at ``MODEL.VALID_THRESHOLD`` when ``MODEL.MASKED_LOSS``."""
-    return functools.partial(
-        pointmvsnet_loss,
-        valid_threshold=cfg.MODEL.VALID_THRESHOLD if cfg.MODEL.MASKED_LOSS else 0.0)
+    """cfg → ``loss_fn(preds, gt_depth, cams)`` of ``MODEL.NAME``:
+    Point-MVSNet's, with the flow iterations' reach mask at
+    ``MODEL.VALID_THRESHOLD`` when ``MODEL.MASKED_LOSS``; CasMVSNet's."""
+    return _HEADS[cfg.MODEL.NAME][0](cfg)
 
 
-def build_model(cfg, device="cuda", grid=None) -> PointMVSNet:
+def build_metric_fn(cfg) -> Callable:
+    """cfg → ``metric_fn(preds, gt_depth, cams)`` of ``MODEL.NAME``: the
+    share of valid pixels within 1 and 3 depth intervals, per stage."""
+    return _HEADS[cfg.MODEL.NAME][1]
+
+
+def build_model(cfg, device="cuda", grid=None) -> torch.nn.Module:
     """cfg → the model on ``device`` (CUDA unless the caller asks for the
     CPU; raises without a GPU), in eval mode; the train step switches it to
     training mode. ``grid``: this rank's ``parallel.distributed.EvalGrid``,
@@ -110,7 +152,8 @@ def build_model(cfg, device="cuda", grid=None) -> PointMVSNet:
     return MODEL_REGISTRY[name](cfg, *groups).to(dev).eval()
 
 
-__all__ = ["PointMVSNet", "PointFlow", "ImageConv", "VolumeConv", "EdgeConv",
+__all__ = ["PointMVSNet", "PointFlow", "CasMVSNet", "ImageConv", "VolumeConv", "EdgeConv",
            "pointmvsnet_loss", "pointmvsnet_metrics", "build_loss_fn",
-           "build_model", "build_pointmvsnet", "build_mvsnet", "MODEL_REGISTRY",
+           "build_model", "build_pointmvsnet", "build_mvsnet", "build_casmvsnet",
+           "build_metric_fn", "MODEL_REGISTRY",
            "register_model", "check_model_knobs"]

@@ -1,5 +1,6 @@
 """Loss and metrics of Point-MVSNet: counterpart of
-``pointmvsnet_tpu/models/loss.py``.
+``pointmvsnet_tpu/models/loss.py``; and CasMVSNet's loss
+(``cascade_loss``), which the JAX package has not.
 
 The loss is the masked mean absolute depth error in depth-interval units,
 summed over the coarse map and every flow iteration; the metrics are the
@@ -20,11 +21,12 @@ global batch (on an eval grid, a data group), default every rank.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from pointmvsnet_tpu_torch.models.pointmvsnet import flow_keys
 from pointmvsnet_tpu_torch.ops.geometry import cam_depth_range
 from pointmvsnet_tpu_torch.parallel import distributed
 
@@ -44,8 +46,7 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor, sharded: bool,
 
 def _stages(preds: Dict[str, torch.Tensor]):
     """The depth outputs: the coarse map, then flow1, flow2, ... by name."""
-    return ["coarse_depth_map"] + sorted(
-        k for k in preds if k.startswith("flow") and not k.endswith("_input"))
+    return ["coarse_depth_map"] + flow_keys(preds)
 
 
 def pointmvsnet_loss(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
@@ -80,20 +81,53 @@ def pointmvsnet_loss(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
 def pointmvsnet_metrics(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
                         cams: torch.Tensor,
                         thresholds: Sequence[float] = (1.0, 3.0),
-                        sharded: bool = False, group=None) -> Dict[str, torch.Tensor]:
+                        sharded: bool = False, group=None,
+                        stages: Optional[Dict[str, str]] = None) -> Dict[str, torch.Tensor]:
     """``<{t}_pct_{stage}``: fraction of valid pixels whose error is below
-    t intervals, stage ``cor`` for the coarse map and ``flowN``."""
+    t intervals, stage ``cor`` for the coarse map and ``flowN``; or, with
+    ``stages`` (prediction key → stage name), those stages."""
     gt = gt_depth[..., 0]
     _, d_int, _, _ = cam_depth_range(cams[:, 0])
     interval = d_int[:, None, None]
     out: Dict[str, torch.Tensor] = {}
-    for key in _stages(preds):
+    if stages is None:
+        stages = {k: "cor" if k == "coarse_depth_map" else k for k in _stages(preds)}
+    for key, stage in stages.items():
         pred = preds[key]
         g = _resize_gt(gt, pred.shape[1], pred.shape[2])
         mask = g > 0
         err = (pred - g).abs()
-        stage = "cor" if key == "coarse_depth_map" else key
         for t in thresholds:
             out[f"<{int(t)}_pct_{stage}"] = _masked_mean((err < t * interval).float(), mask,
                                                             sharded, group)
     return out
+
+
+CASCADE_STAGES = {f"stage{s}_depth": f"stage{s}" for s in (1, 2, 3)}
+CASCADE_LOSS_WEIGHTS = (0.5, 1.0, 2.0)     # the published stages' weights
+
+
+def cascade_loss(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
+                 cams: torch.Tensor, sharded: bool = False,
+                 group=None) -> Dict[str, torch.Tensor]:
+    """CasMVSNet's loss: per stage the masked mean smooth-L1 (β = 1, in the
+    depth's units) against the GT resized to the stage's grid, and
+    ``total_loss``, their sum weighted by ``CASCADE_LOSS_WEIGHTS``.
+    gt_depth (B, H, W, 1) at image resolution, zeros invalid."""
+    gt = gt_depth[..., 0]
+    losses: Dict[str, torch.Tensor] = {}
+    total = 0.0
+    for (key, stage), wt in zip(CASCADE_STAGES.items(), CASCADE_LOSS_WEIGHTS):
+        pred = preds[key]
+        g = _resize_gt(gt, pred.shape[1], pred.shape[2])
+        err = F.smooth_l1_loss(pred, g, reduction="none", beta=1.0)
+        losses[f"{stage}_loss"] = _masked_mean(err, g > 0, sharded, group)
+        total = total + wt * losses[f"{stage}_loss"]
+    losses["total_loss"] = total
+    return losses
+
+
+def cascade_metrics(preds: Dict[str, torch.Tensor], gt_depth: torch.Tensor,
+                    cams: torch.Tensor, **kwargs) -> Dict[str, torch.Tensor]:
+    """``pointmvsnet_metrics`` over CasMVSNet's three stages."""
+    return pointmvsnet_metrics(preds, gt_depth, cams, stages=CASCADE_STAGES, **kwargs)

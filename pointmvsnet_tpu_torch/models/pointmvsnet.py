@@ -68,6 +68,11 @@ from pointmvsnet_tpu_torch.utils import profiler
 HALO = 8     # rows above and below a flow band: ≥ the ±6-row reach of three EdgeConvs
 
 
+def flow_keys(preds) -> List[str]:
+    """The flow iterations' depth keys of a prediction dict, in order."""
+    return sorted(k for k in preds if k.startswith("flow") and not k.endswith("_input"))
+
+
 def scale_cams(cams: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
     """Scale the intrinsics rows of cams (..., 2, 4, 4) for an image resize."""
     out = cams.clone()
@@ -227,7 +232,16 @@ def banded_point_flow(flow: PointFlow, levels: List[torch.Tensor],
 class PointMVSNet(nn.Module):
     """The full model. ``forward`` takes images (B, V, H, W, 3)
     normalized and cams (B, V, 2, 4, 4) at image resolution, view 0 the
-    reference, and returns the JAX package's prediction dict."""
+    reference, and returns the JAX package's prediction dict.
+
+    The entry points (``Predictor``, ``test.py``) ask the model for its
+    eval options (``eval_kwargs``), the keys of its final depth and
+    confidence (``result_keys``), the maps it exports (``export_maps``)
+    and its crop base. ``coarse_only``: the eval forward stops after the
+    coarse stage (the registry's ``mvsnet``)."""
+
+    crop_base = 64
+    coarse_only = False
 
     def __init__(self, img_base_channels: int = 8, vol_base_channels: int = 8,
                  edge_channels: Sequence[int] = (32, 32, 64),
@@ -249,6 +263,26 @@ class PointMVSNet(nn.Module):
         self.dtype = dtype
         self.flow_chunk_rows = flow_chunk_rows
         self.band_group, self.view_group = band_group, view_group
+
+    def eval_kwargs(self, cfg) -> Dict:
+        return dict(is_flow=not self.coarse_only,
+                    img_scales=tuple(cfg.MODEL.TEST.IMG_SCALES),
+                    inter_scales=tuple(cfg.MODEL.TEST.INTER_SCALES),
+                    num_virtual_plane=cfg.DATA.TEST.NUM_VIRTUAL_PLANE)
+
+    @staticmethod
+    def result_keys(preds) -> Tuple[str, str]:
+        """(the last flow's depth, else the coarse depth; the coarse
+        probability map)."""
+        flows = flow_keys(preds)
+        return (flows[-1] if flows else "coarse_depth_map"), "coarse_prob_map"
+
+    @staticmethod
+    def export_maps(preds) -> Dict[str, str]:
+        """File suffix → prediction key: the coarse depth, each flow's
+        depth, the coarse probability map."""
+        return {"init": "coarse_depth_map", **{k: k for k in flow_keys(preds)},
+                "prob": "coarse_prob_map"}
 
     def _pyramid(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The shared 2-D CNN over all views folded into the batch."""

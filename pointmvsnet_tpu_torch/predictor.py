@@ -4,8 +4,11 @@
     out = pred(images, cams)                 # numpy in → numpy out
     out["depth"], out["confidence"]
 
-Same host-side preprocessing as the JAX package (stride-64 center crop,
-per-image standardization). The weights: ``state_dict`` if given, else
+Same host-side preprocessing as the JAX package (center crop to multiples
+of the model's ``crop_base``, 64 for Point-MVSNet, per-image
+standardization); the model gives its eval options (``eval_kwargs``) and
+the keys of its final depth and confidence (``result_keys``). The
+weights: ``state_dict`` if given, else
 ``weight_path``, else the newest checkpoint of ``checkpoint_dir`` (each a
 ``.pt`` file, a directory of ``<epoch>.pt`` files or an orbax checkpoint
 of the JAX package; ``utils/checkpoint.py::load_weights``), else drawn
@@ -51,12 +54,7 @@ class Predictor:
         else:
             self.model.load_state_dict(
                 init_params(self.model, torch.Generator().manual_seed(cfg.RNG_SEED)))
-        self.kwargs = dict(
-            is_flow=cfg.MODEL.NAME != "mvsnet",
-            img_scales=tuple(cfg.MODEL.TEST.IMG_SCALES),
-            inter_scales=tuple(cfg.MODEL.TEST.INTER_SCALES),
-            num_virtual_plane=cfg.DATA.TEST.NUM_VIRTUAL_PLANE,
-        )
+        self.kwargs = self.model.eval_kwargs(cfg)
 
     def __call__(self, images: np.ndarray, cams: np.ndarray) -> Dict[str, np.ndarray]:
         """images (V, H, W, 3) float or uint8; cams (V, 2, 4, 4) → dict with
@@ -65,7 +63,8 @@ class Predictor:
             images = np.asarray(images, np.float32)
             cams = np.asarray(cams, np.float32)
             imgs, cms = crop_mvs_input(list(images), list(cams),
-                                       images.shape[1], images.shape[2], base=64)
+                                       images.shape[1], images.shape[2],
+                                       base=self.model.crop_base)
             if self.normalize:
                 imgs = [norm_image(im) for im in imgs]
             imgs, cms = np.stack(imgs)[None], np.stack(cms)[None]
@@ -77,8 +76,6 @@ class Predictor:
                 preds = self.model(batch_imgs, batch_cams, **self.kwargs)
             with profiler.span("predictor.to_host"):
                 preds = {k: v[0].float().cpu().numpy() for k, v in preds.items()}
-                flow_keys = sorted(k for k in preds
-                                   if k.startswith("flow") and not k.endswith("_input"))
-                preds["depth"] = preds[flow_keys[-1] if flow_keys else "coarse_depth_map"]
-                preds["confidence"] = preds["coarse_prob_map"]
+                depth, confidence = self.model.result_keys(preds)
+                preds["depth"], preds["confidence"] = preds[depth], preds[confidence]
         return preds

@@ -7,7 +7,10 @@
 No-grad loop over the test split (DTU or Tanks & Temples) at the eval
 settings, per-batch losses and depth metrics where the split has GT
 depth, and the MVSNet-format export that ``fuse.py`` reads
-(``OUTPUT_DIR/depths/scan<n>/``). The weights come from ``TEST.WEIGHT``
+(``OUTPUT_DIR/depths/scan<n>/``). The model (``MODEL.NAME``: Point-MVSNet,
+its coarse-only ``mvsnet``, or ``casmvsnet``) gives its eval options, its
+crop base and the maps it exports; ``build_loss_fn`` / ``build_metric_fn``
+its loss and metrics. The weights come from ``TEST.WEIGHT``
 (a ``.pt`` file, a directory of ``<epoch>.pt`` files, or an orbax
 checkpoint the JAX package wrote: its manager root, a step or an item
 directory; ``utils/checkpoint.py::load_weights``), else from the newest
@@ -40,7 +43,7 @@ import torch
 from pointmvsnet_tpu_torch import disable_tf32, resolve_device
 from pointmvsnet_tpu_torch.config import get_default_cfg
 from pointmvsnet_tpu_torch.dataset.build import build_data_loader
-from pointmvsnet_tpu_torch.models import build_loss_fn, build_model, pointmvsnet_metrics
+from pointmvsnet_tpu_torch.models import build_loss_fn, build_metric_fn, build_model
 from pointmvsnet_tpu_torch.parallel import TrainState, distributed, make_eval_step, put_batch
 from pointmvsnet_tpu_torch.utils import orbax_reader
 from pointmvsnet_tpu_torch.utils.checkpoint import Checkpointer
@@ -73,13 +76,9 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
                                       cfg.PARALLEL.VIEW, dev)
     logger = setup_logger("pointmvsnet_tpu_torch.test", output_dir)
     model = build_model(cfg, dev, grid)
-    loader = build_data_loader(cfg, "test", shard=(grid.index[0], grid.data))
-    kwargs = dict(
-        is_flow=cfg.MODEL.NAME != "mvsnet",
-        img_scales=tuple(cfg.MODEL.TEST.IMG_SCALES),
-        inter_scales=tuple(cfg.MODEL.TEST.INTER_SCALES),
-        num_virtual_plane=cfg.DATA.TEST.NUM_VIRTUAL_PLANE,
-    )
+    loader = build_data_loader(cfg, "test", shard=(grid.index[0], grid.data),
+                               base=model.crop_base)
+    kwargs = model.eval_kwargs(cfg)
     state = TrainState(model, build_optimizer(cfg, dict(model.named_parameters())))
     checkpointer = Checkpointer(os.path.join(output_dir, "checkpoints"))
     if cfg.TEST.WEIGHT or checkpointer.latest_epoch() is not None:
@@ -91,7 +90,7 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
         model.load_state_dict(init_params(model, torch.Generator().manual_seed(cfg.RNG_SEED)))
         logger.info("weights: none given, drawn from RNG_SEED=%d", cfg.RNG_SEED)
 
-    eval_step = make_eval_step(build_loss_fn(cfg), pointmvsnet_metrics, kwargs, sharded=False)
+    eval_step = make_eval_step(build_loss_fn(cfg), build_metric_fn(cfg), kwargs, sharded=False)
     meters = MetricLogger()
     depth_dir = os.path.join(output_dir, "depths")
     os.makedirs(depth_dir, exist_ok=True)
@@ -104,8 +103,9 @@ def test(cfg, output_dir: str, max_batches: Optional[int] = None, device="cuda")
         preds, losses, metrics = eval_step(state, put_batch(batch, dev))
         if grid.lead:            # the other ranks of its band and view group hold the same
             preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
+            maps = model.export_maps(preds)
             for b in range(batch["images"].shape[0]):
-                eval_file_logger(batch, preds, depth_dir, batch_index=b)
+                eval_file_logger(batch, preds, depth_dir, batch_index=b, maps=maps)
                 n_maps += 1
             meters.update(**{k: float(v) for k, v in losses.items()},
                           **{k: float(v) for k, v in metrics.items()})

@@ -73,6 +73,9 @@ def test_make_inputs_against_jax_bench():
     assert len(bench.make_inputs(1, 2, 64, 64, 8, device="cpu")) == 2
 
 
+PORT_ONLY_KEYS = ["MODEL.CASCADE.DEPTH_INTERVAL_RATIOS", "MODEL.CASCADE.NDEPTHS"]
+
+
 def flat_cfg(node, prefix=""):
     out = {}
     for k, v in node.items():
@@ -85,12 +88,16 @@ def flat_cfg(node, prefix=""):
 
 @pytest.mark.parametrize("token", tt_sweep.DEFAULT_TOKENS + ["bilinear:0@1920x1024"])
 def test_build_config_equals_jax_bench(token):
-    """For each token's (engine, chunk_rows), key for key, value and type."""
+    """For each token's (engine, chunk_rows), key for key, value and type;
+    the port's config has the JAX package's keys and, besides them, only
+    its own CasMVSNet section (``MODEL.CASCADE``), which the JAX package
+    has no model for."""
     engine, chunk, _, _ = tt_sweep.parse_token(token)
     cfg, model = bench.build(fetch=engine, chunk_rows=chunk, device="cpu")
     jcfg, _ = jbench.build(fetch=engine, chunk_rows=chunk)
     got, want = flat_cfg(cfg), flat_cfg(jcfg)
-    assert sorted(got) == sorted(want)
+    assert sorted(set(got) - set(want)) == PORT_ONLY_KEYS
+    assert set(want) <= set(got)
     for k, v in want.items():
         assert got[k] == v and type(got[k]) is type(v), k
     assert cfg.MODEL.FLOW_CHUNK_ROWS == chunk and cfg.MODEL.DTYPE == "bfloat16"
