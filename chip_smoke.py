@@ -13,9 +13,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            and export phases check that it did (flags off after
            ``Predictor``, ``train()`` and ``test.test``, each entered with
            TF32 allowed), so every f32 gate holds for what users get.
-2. build   nvcc builds the six kernel sources in csrc/, in parallel: the
+2. build   nvcc builds the seven kernel sources in csrc/, in parallel: the
            tuned kNN and masked max, their general kernels, the probe's
-           row gather, PointFlow's fused fetch.
+           row gather, PointFlow's fused fetch, the plane sweep.
 3. dataplane  the C++ host data plane (native/src/dataplane.cpp and
            image.cpp): g++'s version, flags and build time; the C path
            bit-equal to the Python readers on this host (its numpy may
@@ -51,6 +51,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            chunk), in the paper-eval and T&T forwards (each call, flow1-3,
            3 launches a map) and at FLOW_CHUNK_ROWS 64; its CUPTI time per
            call and per map beside the composition's and the bound.
+   sweep   the plane sweep's cost volume (csrc/plane_sweep.cu) bit-equal to
+           the composition it replaces, cast to the features' dtype, on
+           seeded inputs meant to break it (B=2, V-1 of 2 and 4, bf16 and
+           f32, C of 8, 16, 32 and every channel chunk, planes and
+           per-pixel depths), in the paper-eval, T&T and CasMVSNet (bf16
+           and f32) forwards (each call; coarse_*, flow1-3, stage1-3_*; 1,
+           1 and 3 launches a map); its CUPTI time beside the composition's and the
+           bound at the DTU and T&T coarse shapes and CasMVSNet's stages.
 5. gather  the probe's windowed row gather (csrc/window_gather.cu) against
            its plain version, bit-equal, at the probe's default shape and
            at one whose rows fill the upper slab and the padded last
@@ -61,9 +69,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            weights; depth bars of tests/test_full_parity.py.
 7. serve   Predictor at the paper-eval config (640×512, V=5, D=96, bf16,
            BatchNorm eval, 3 PointFlow iterations) answers 3 requests on a
-           synthetic scene; each must launch exactly 3 kNN and 9 masked-max
-           kernels and return finite maps; one more request runs under
-           the profiler (device busy share, top kernels).
+           synthetic scene; each must launch exactly 3 kNN, 9 masked-max,
+           3 fetch and 1 sweep kernels and return finite maps; one more
+           request runs under the profiler (device busy share, top kernels).
 8. train   train() at the reference training config (640×512, V=3, D=48,
            B=4, BatchNorm, f32, flows at 0.25 / 0.5) on a synthetic DTU
            tree written by the port: 2 coarse-only and 2 flow steps with
@@ -259,8 +267,8 @@ per banded request; per KNN 8 request and banded
 train step; per T&T map and sweep token, with the time, plain time
 and bound per T&T map at 1280x1024 and 1920x1024), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. ``--phases
-dataplane,point-fetch,train,train-bf16,learn,train-dp,export-dtu,weights,trained,parallel-eval,envelope,tanks,bench``
-(any subset of the thirteen) runs only those, to try them on the card, and
+dataplane,point-fetch,sweep,train,train-bf16,learn,train-dp,export-dtu,weights,trained,parallel-eval,envelope,tanks,bench``
+(any subset of the fourteen) runs only those, to try them on the card, and
 prints no result lines. Imports nothing of JAX.
 """
 
@@ -605,20 +613,13 @@ def phase_gather(dev):
 PF_WIDTHS = [(8, 16, 32), (4, 8, 16), (2, 4, 8), (3, 6, 12)]   # 8, 4, 2, 1 channels a thread
 
 
-def fetch_cases(b: int, v: int, widths, h: int, w: int, dtype, dev, seed: int) -> tuple:
-    """Seeded ``point_fetch_cuda`` arguments at an (h, w) flow grid (G = 5,
-    level l at (h, w) / 2^l) meant to break it: uv over the image and a
-    3-pixel margin at random fractions, and for a share of the points on
-    the last column or row exactly (level 0's taps i0 + 1 or j0 + 1
-    outside), at integers, at negative fractions in (−1, 0), far outside
-    (1e9); z negative, +0 or −0 (behind or on the camera plane) for another
-    share; hypothesis depths ≤ 0 for about half; features and reference
-    samples of both signs."""
-    gen = torch.Generator().manual_seed(seed)
-    n = h * w
-    shape = (b, v - 1, G * n)
-    levels = [torch.randn(b, v, h >> l, w >> l, c, generator=gen).to(dtype)
-              for l, c in enumerate(widths)]
+def edge_uv_z(shape, h: int, w: int, gen) -> tuple:
+    """Seeded uv (shape + (2,)) and z (shape) at an (h, w) grid meant to
+    break a bilinear fetch: uv over the image and a 3-pixel margin at random
+    fractions, and for a share of the points on the last column or row
+    exactly (the taps i0 + 1 or j0 + 1 outside), at integers, at negative
+    fractions in (−1, 0), far outside (1e9); z negative, +0 or −0 (behind
+    or on the camera plane) for another share."""
     u = torch.rand(shape, generator=gen) * (w + 6) - 3
     y = torch.rand(shape, generator=gen) * (h + 6) - 3
     kind = torch.randint(0, 12, shape, generator=gen)
@@ -632,10 +633,23 @@ def fetch_cases(b: int, v: int, widths, h: int, w: int, dtype, dev, seed: int) -
     z = torch.where(kind == 7, -z, z)
     z = torch.where(kind == 8, 0.0, z)
     z = torch.where(kind == 9, -0.0, z)
+    return torch.stack([u, y], -1), z
+
+
+def fetch_cases(b: int, v: int, widths, h: int, w: int, dtype, dev, seed: int) -> tuple:
+    """Seeded ``point_fetch_cuda`` arguments at an (h, w) flow grid (G = 5,
+    level l at (h, w) / 2^l) meant to break it: uv and z by ``edge_uv_z``
+    at level 0's grid; hypothesis depths ≤ 0 for about half; features and
+    reference samples of both signs."""
+    gen = torch.Generator().manual_seed(seed)
+    n = h * w
+    levels = [torch.randn(b, v, h >> l, w >> l, c, generator=gen).to(dtype)
+              for l, c in enumerate(widths)]
+    uv, z = edge_uv_z((b, v - 1, G * n), h, w, gen)
     refs = [torch.randn(b, n, c, generator=gen) for c in widths]
     hyp = torch.randn(b, G, n, generator=gen)
-    return ([f.to(dev) for f in levels], torch.stack([u, y], -1).to(dev), z.to(dev),
-            [r.to(dev) for r in refs], hyp.to(dev))
+    return ([f.to(dev) for f in levels], uv.to(dev), z.to(dev), [r.to(dev) for r in refs],
+            hyp.to(dev))
 
 
 def point_fetch_bound(levels, uv, z, refs, hyp):
@@ -654,36 +668,39 @@ def point_fetch_bound(levels, uv, z, refs, hyp):
     return nbytes, out * (10 * s + 5)
 
 
-class record_fetch_calls:
-    """Inside the block, the model's calls of ``point_fetch_cuda`` are
-    recorded with their arguments and outputs."""
+class record_calls:
+    """Inside the block, the calls of ``module.<name>`` (a kernel's
+    wrapper, which the model looks up there) are recorded with their
+    arguments and outputs."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
 
     def __enter__(self):
-        from pointmvsnet_tpu_torch.ops import sampling
-        self.calls, self.fn = [], sampling.point_fetch_cuda
+        self.calls, self.fn = [], getattr(self.module, self.name)
 
         def call(*args):
             out = self.fn(*args)
             self.calls.append((args, out))
             return out
-        sampling.point_fetch_cuda = call
+        setattr(self.module, self.name, call)
         return self.calls
 
     def __exit__(self, *exc):
-        from pointmvsnet_tpu_torch.ops import sampling
-        sampling.point_fetch_cuda = self.fn
+        setattr(self.module, self.name, self.fn)
 
 
 @contextlib.contextmanager
-def fetch_composition():
-    """Inside the block the model takes the fetch's composition on the card."""
-    from pointmvsnet_tpu_torch.ops import sampling
-    rule = sampling.fetch_kernel_applies
-    sampling.fetch_kernel_applies = lambda *t: False
+def composition(module):
+    """Inside the block ``module``'s kernel rule (``fetch_kernel_applies``)
+    holds for nothing: the model takes that module's composition on the
+    card."""
+    rule = module.fetch_kernel_applies
+    module.fetch_kernel_applies = lambda *t: False
     try:
         yield
     finally:
-        sampling.fetch_kernel_applies = rule
+        module.fetch_kernel_applies = rule
 
 
 def phase_point_fetch(dev) -> tuple:
@@ -739,10 +756,10 @@ def phase_point_fetch(dev) -> tuple:
     for label, (h, w) in (("paper-eval", (512, 640)), ("tanks", (1024, 1920))):
         cfg, model, images, cams, kwargs = bench.headline("cuda", 1, 5, h, w, 96)
         with torch.inference_mode():
-            with fetch_composition():
+            with composition(sampling):
                 want = model(images, cams, **kwargs)
             sampling.launches = 0
-            with record_fetch_calls() as calls:
+            with record_calls(sampling, "point_fetch_cuda") as calls:
                 got = model(images, cams, **kwargs)
             torch.cuda.synchronize()
         n = sampling.launches
@@ -776,7 +793,7 @@ def phase_point_fetch(dev) -> tuple:
     kwargs = dict(is_flow=True, img_scales=tuple(cfg.MODEL.TEST.IMG_SCALES),
                   inter_scales=tuple(cfg.MODEL.TEST.INTER_SCALES), num_virtual_plane=96)
     with torch.inference_mode():
-        with fetch_composition():
+        with composition(sampling):
             want = model(images, cams, **kwargs)
         sampling.launches = 0
         got = model(images, cams, **kwargs)
@@ -790,6 +807,158 @@ def phase_point_fetch(dev) -> tuple:
     print(f"point-fetch: paper-eval at FLOW_CHUNK_ROWS 64: {bands} launches (one a band), "
           f"flow1-3 bit-equal to the composition's; {smi_line()}", flush=True)
     return per_map, err[0]
+
+
+SWEEP_WIDTHS = (8, 16, 32, 12, 6, 3)   # bf16: 8 channels a thread, then 4, 2 and 1
+CAS_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                       "casmvsnet_dtu.yaml")
+
+
+def sweep_cases(b: int, v: int, c: int, h: int, w: int, d: int, dtype, dev, seed: int,
+                per_pixel: bool) -> tuple:
+    """Seeded ``plane_sweep_cuda`` arguments at an (h, w) grid with d
+    hypotheses a pixel, meant to break it: uv and z as ``edge_uv_z`` makes
+    them (last row and column, negative fractions, far outside, z <= 0 and
+    -0), depths of both signs (about half mask the reference view), planes
+    (b, d) or per pixel (b, d, h, w); features of both signs."""
+    gen = torch.Generator().manual_seed(seed)
+    feats = torch.randn(b, v, h, w, c, generator=gen).to(dtype)
+    uv, z = edge_uv_z((b, v - 1, d * h * w), h, w, gen)
+    depths = torch.randn((b, d, h, w) if per_pixel else (b, d), generator=gen)
+    return feats.to(dev), uv.to(dev), z.to(dev), depths.to(dev)
+
+
+def sweep_bound(feats, uv, z, depths):
+    """(bytes, flops) of one sweep: uv, z and the depths in, every view's
+    features once, the volume out in the features' dtype; per (hypothesis,
+    channel) 10·(V−1) + 5 operations, as ``point_fetch_bound`` counts them."""
+    b, v, h, w, c = feats.shape
+    out = b * depths.shape[1] * h * w * c
+    nbytes = (4 * (uv.numel() + z.numel() + depths.numel())
+              + (feats.numel() + out) * feats.element_size())
+    return nbytes, out * (10 * (v - 1) + 5)
+
+
+def cascade_forward(dev, dtype: str = "bfloat16"):
+    """CasMVSNet at its DTU test setting (configs/casmvsnet_dtu.yaml: 864x1152,
+    V=5, 48 / 32 / 8 hypotheses) in ``dtype`` with seeded weights on a
+    synthetic scene → (model, images, cams, kwargs)."""
+    from pointmvsnet_tpu_torch.config import load_cfg_from_file
+    from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
+    from pointmvsnet_tpu_torch.models import build_model
+    from pointmvsnet_tpu_torch.utils.convert import init_params
+
+    cfg = load_cfg_from_file(CAS_CFG)
+    cfg.MODEL.DTYPE = dtype
+    model = build_model(cfg, "cpu")
+    model.load_state_dict(init_params(model, torch.Generator().manual_seed(5)))
+    model = model.to(dev).eval()
+    h, w = CAS_SIZE
+    images, cams, _ = make_scene_batch(1, 5, h, w, 192, depth_interval=2.65, seed=7)
+    return model, torch.tensor(images, device=dev), torch.tensor(cams, device=dev), dict(
+        num_virtual_plane=192)
+
+
+def phase_sweep(dev) -> tuple:
+    """The plane sweep's kernel (csrc/plane_sweep.cu) against the
+    composition it replaces (``plane_sweep_plain``: the composition from the
+    projection, cast to the features' dtype) on the card, bit for bit (NaN
+    positions, then every bit): on ``sweep_cases`` at B = 2, V − 1 of 2 and
+    4, bf16 and f32 features, C of 8, 16 and 32 (and 12, 6, 3: 4, 2 and 1
+    channels a thread), planes and per-pixel depths, on a 40x56 and a 37x53
+    grid; then the paper-eval forward (640x512, V=5, D=96, bf16), the
+    Tanks & Temples one (1920x1024) and CasMVSNet's (864x1152, V=5, 48 / 32
+    / 8; in bf16, and in f32 too), each kernel call against the composition
+    on its inputs and ``coarse_*``, ``flow1-3`` and ``stage1-3_*`` against
+    the forward with the sweep's composition, with 1, 1 and 3 launches a
+    map. Prints the
+    kernel's CUPTI ms, the bound and the composition's ms (CUDA events) at
+    the DTU and T&T coarse shapes and CasMVSNet's three stages. → ({shape:
+    (ms, plain_ms, bound_ms, source)}, launches a map by forward, the
+    largest |kernel − composition|)."""
+    import gc
+
+    from pointmvsnet_tpu_torch import bench
+    from pointmvsnet_tpu_torch.ops import cost_volume
+    from pointmvsnet_tpu_torch.ops.cost_volume import plane_sweep_cuda, plane_sweep_plain
+
+    err = [0.0]
+
+    def held(out, args, what):
+        want = plane_sweep_plain(*args)
+        nan = torch.isnan(out) | torch.isnan(want)
+        diff = (out.float() - want.float()).abs()[~nan]
+        most = float(diff.max()) if diff.numel() else 0.0
+        err[0] = max(err[0], most)
+        if not same_bits(out, want):
+            fail(f"sweep {what}: kernel != composition ({int((diff > 0).sum())} of "
+                 f"{out.numel()} differ, most by {most})")
+
+    met = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in (2, 4):
+            for c in SWEEP_WIDTHS if s == 4 else SWEEP_WIDTHS[:3]:
+                for per_pixel in (False, True):
+                    for h, w in ((40, 56), (37, 53)):
+                        args = sweep_cases(2, s + 1, c, h, w, 6, dtype, dev, met, per_pixel)
+                        out = plane_sweep_cuda(*args)
+                        torch.cuda.synchronize()
+                        held(out, args, f"cases {str(dtype)[6:]}, V-1={s}, C={c}, "
+                                        f"{'per-pixel' if per_pixel else 'planes'}, {h}x{w}")
+                        met += 1
+    print(f"sweep: {met} seeded cases bit-equal to the composition (B=2, V-1 2 and 4, bf16 "
+          f"and f32, C {SWEEP_WIDTHS}, planes and per-pixel depths, last row / column, "
+          f"negative fractions, far outside, z <= 0 and -0, depths <= 0)", flush=True)
+
+    timed, launches = {}, {}
+    forwards = [("paper-eval", ("coarse_depth_map", "coarse_prob_map", "flow1", "flow2",
+                                "flow3"), ("dtu coarse",)),
+                ("tanks", ("coarse_depth_map", "coarse_prob_map", "flow1", "flow2", "flow3"),
+                 ("tt coarse",)),
+                ("casmvsnet", tuple(f"stage{s}_{m}" for s in (1, 2, 3)
+                                    for m in ("depth", "confidence")),
+                 ("cas stage1", "cas stage2", "cas stage3")),
+                ("casmvsnet f32", tuple(f"stage{s}_{m}" for s in (1, 2, 3)
+                                        for m in ("depth", "confidence")),
+                 ("cas stage1 f32", "cas stage2 f32", "cas stage3 f32"))]
+    for label, keys, shapes in forwards:
+        if label.startswith("casmvsnet"):
+            model, images, cams, kwargs = cascade_forward(
+                dev, "float32" if label.endswith("f32") else "bfloat16")
+        else:
+            h, w = (512, 640) if label == "paper-eval" else (1024, 1920)
+            _, model, images, cams, kwargs = bench.headline("cuda", 1, 5, h, w, 96)
+        with torch.inference_mode():
+            with composition(cost_volume):
+                want = model(images, cams, **kwargs)
+            cost_volume.launches = 0
+            with record_calls(cost_volume, "plane_sweep_cuda") as calls:
+                got = model(images, cams, **kwargs)
+            torch.cuda.synchronize()
+        n = cost_volume.launches
+        launches[label] = n
+        check(n == len(shapes) and len(calls) == n,
+              f"sweep {label}: {n} launches a map, want {len(shapes)}")
+        for key in keys:
+            check(same_bits(got[key], want[key]),
+                  f"sweep {label}: {key} differs from the composition's")
+        for shape, (args, out) in zip(shapes, calls):
+            held(out, args, f"{label} {shape}")
+            ms, src = cupti_ms(lambda: plane_sweep_cuda(*args), "plane_sweep")
+            pms = time_ms(lambda: plane_sweep_plain(*args), reps=3, warmup=1)
+            bb, by = bound_ms(*sweep_bound(*args))
+            feats, depths = args[0], args[3]
+            grid = f"{feats.shape[3]}x{feats.shape[2]} D {depths.shape[1]} C {feats.shape[4]}"
+            timed[shape] = (ms, pms, bb, src)
+            print(f"sweep: {shape} ({grid}, {'per-pixel' if depths.dim() == 4 else 'planes'}): "
+                  f"bit-equal; kernel {ms:.4f} ms ({src}), composition {pms:.3f} ms, bound "
+                  f"{bb:.4f} ms ({by})", flush=True)
+        print(f"sweep: {label}: {n} launches a map, {', '.join(keys)} bit-equal to the "
+              f"composition's; {smi_line()}", flush=True)
+        del model, images, cams, want, got, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    return timed, launches, err[0]
 
 
 def with_model(cfg, overrides):
@@ -846,6 +1015,7 @@ def phase_cascade(dev):
     3 times the bf16 reference's own."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import casmvsnet_reference as ref
+    from pointmvsnet_tpu_torch import disable_tf32
     from pointmvsnet_tpu_torch.config import load_cfg_from_file
     from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
     from pointmvsnet_tpu_torch.ops.cost_volume import plane_sweep_volume
@@ -876,6 +1046,9 @@ def phase_cascade(dev):
                                             depth_interval=2.65, seed=8)
     model_cfg = {"IMG_BASE_CHANNELS": 8, "VOL_BASE_CHANNELS": 8,
                  "CASCADE": {"NDEPTHS": [48, 32, 8], "DEPTH_INTERVAL_RATIOS": [4.0, 2.0, 1.0]}}
+    # the reference in float32: TF32 off whatever the phases before left
+    # (cuDNN allows TF32 when a process starts)
+    disable_tf32()
     f32 = ref.build(model_cfg)
     f32.load_state_dict(init_params(f32, torch.Generator().manual_seed(5)))
     f32 = f32.to(dev)
@@ -926,7 +1099,7 @@ def phase_cascade(dev):
 def phase_serve():
     from pointmvsnet_tpu_torch.config import get_default_cfg
     from pointmvsnet_tpu_torch.dataset.synthetic import make_scene_batch
-    from pointmvsnet_tpu_torch.ops import edge, knn, sampling
+    from pointmvsnet_tpu_torch.ops import cost_volume, edge, knn, sampling
     from pointmvsnet_tpu_torch.predictor import Predictor
 
     cfg = get_default_cfg()
@@ -942,24 +1115,27 @@ def phase_serve():
     sampling.launches = 0
     latencies = []
     for r in range(3):
-        k0, e0, f0 = knn.launches, edge.launches, sampling.launches
+        k0, e0, f0, s0 = knn.launches, edge.launches, sampling.launches, cost_volume.launches
         t0 = time.perf_counter()
         out = pred(images[0], cams[0])           # returns numpy: synchronized
         latencies.append((time.perf_counter() - t0) * 1e3)
         nk, ne, nf = knn.launches - k0, edge.launches - e0, sampling.launches - f0
-        check((nk, ne, nf) == (3, 9, 3), f"request {r}: {nk} kNN, {ne} masked-max and {nf} "
-                                         f"point-fetch launches, want 3, 9 and 3")
+        ns = cost_volume.launches - s0
+        check((nk, ne, nf, ns) == (3, 9, 3, 1),
+              f"request {r}: {nk} kNN, {ne} masked-max, {nf} point-fetch and {ns} sweep "
+              f"launches, want 3, 9, 3 and 1")
         check(out["depth"].shape == (h, w) and out["confidence"].shape == (h // 8, w // 8),
               f"request {r}: shapes {out['depth'].shape} {out['confidence'].shape}")
         check(all(np.isfinite(a).all() for a in out.values()), f"request {r}: non-finite")
         print(f"serve: request {r}: {latencies[-1]:.1f} ms, launches knn {nk} "
-              f"masked_window_max {ne} point_fetch {nf}, depth [{out['depth'].min():.2f}, "
+              f"masked_window_max {ne} point_fetch {nf} plane_sweep {ns}, depth "
+              f"[{out['depth'].min():.2f}, "
               f"{out['depth'].max():.2f}] (true {gt.min():.1f}/{gt.max():.1f})", flush=True)
     print(f"serve: 640x512 V={v} D={d} bf16, 3 flows: latency ms {latencies}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     profile_call(lambda: pred(images[0], cams[0]), "request")
-    return nk, ne, nf                 # one request's launches (checked equal for all)
+    return nk, ne, nf, ns             # one request's launches (checked equal for all)
 
 
 def _train_step_once(dev, kw, batch, sd, knn_hook=None, overrides=None):
@@ -3867,7 +4043,8 @@ def profile_call(fn, what: str, top: int = 12):
               f"{e.key[:90]}", flush=True)
 
 
-PHASES = ["env", "build", "dataplane", "kernels", "point-fetch", "adversarial", "gather",
+PHASES = ["env", "build", "dataplane", "kernels", "point-fetch", "sweep", "adversarial",
+          "gather",
           "parity", "serve", "cascade",
           "train", "train-parity", "export", "export-dtu", "weights", "trained", "fusion-scan",
           "train-bf16", "learn", "train-dp", "parallel-eval", "envelope", "tanks", "bench"]
@@ -3877,7 +4054,8 @@ def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="On-card smoke test of the PyTorch / CUDA port")
     p.add_argument("--phases", default="",
-                   help="comma-separated subset of dataplane,point-fetch,parity,cascade,train,"
+                   help="comma-separated subset of dataplane,point-fetch,sweep,parity,cascade,"
+                        "train,"
                         "train-bf16,"
                         "learn,train-dp,export-dtu,weights,trained,parallel-eval,envelope,tanks,"
                         "bench to try "
@@ -3930,6 +4108,8 @@ def main(argv=None) -> int:
                 phase_dataplane()
             elif name == "point-fetch":
                 phase_point_fetch(dev)
+            elif name == "sweep":
+                phase_sweep(dev)
             elif name == "parity":
                 phase_parity()
             elif name == "cascade":
@@ -3963,10 +4143,11 @@ def main(argv=None) -> int:
     phase_dataplane()
     tot = phase_kernels(dev)
     fetch, fetch_err = phase_point_fetch(dev)
+    sweep, sweep_launches, sweep_err = phase_sweep(dev)
     phase_adversarial(dev)
     gat = phase_gather(dev)
     phase_parity()
-    n_knn, n_mwm, n_fetch = phase_serve()
+    n_knn, n_mwm, n_fetch, n_sweep = phase_serve()
     phase_cascade(dev)
     phase_bench(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_export_")
@@ -4080,6 +4261,19 @@ def main(argv=None) -> int:
         "bound_by": "bytes", "library_ms": None,
         "work": "one forward's three PointFlow fetches, bf16 levels and output, V=5, G=5",
         "launches_per": "serving request (one a flow unbanded, one a band banded)",
+    })
+    rows.append({
+        "name": "plane_sweep", "route": "cuda",
+        "source": "pointmvsnet_tpu_torch/csrc/plane_sweep.cu",
+        "replaces": "none (the JAX package leaves the sweep to XLA)",
+        "launches": n_sweep, "max_abs_err": sweep_err,
+        "launches_per_map": sweep_launches,
+        **{f"{key}_{shape.replace(' ', '_')}": round(t[i], 5) for shape, t in sweep.items()
+           for i, key in enumerate(("ms", "plain_ms", "bound_ms"))},
+        "ms_source": "+".join(sorted({t[3] for t in sweep.values()})),
+        "bound_by": "bytes", "library_ms": None,
+        "work": "the coarse sweep (paper-eval, T&T) and CasMVSNet's three, bf16, V=5",
+        "launches_per": "serving request",
     })
     rows.append({
         "name": "window_gather", "route": "cuda",

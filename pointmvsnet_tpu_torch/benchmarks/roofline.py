@@ -134,9 +134,11 @@ def roofline_table(h=512, w=640, v=5, d=96, g=5, base_c=8,
                    + v * d * ch * cw * cs[2] * 3          # Σf, f², Σf²
                    + d * ch * cw * cs[2] * 4),            # variance
         gather_rows=taps["coarse_sweep_warp"],
-        note="ops/cost_volume.py::plane_sweep_volume: fetch_features, 4 bilinear "
-             "taps of a C=32 bf16 row per (source view, plane, pixel), then the "
-             "variance over the views; the reference view adds its own map")
+        note="csrc/plane_sweep.cu via ops/cost_volume.py::plane_sweep_volume (eval "
+             "on the card; the composition elsewhere): 4 bilinear taps of a C=32 "
+             "bf16 row per (source view, plane, pixel), then the variance over the "
+             "views; the reference view adds its own map. Counted as the "
+             "composition's passes, as the JAX table counts them")
     add("volume_unet",
         stream_bytes=4 * d * ch * cw * cs[2] * 4,
         tc_flops=2 * 60 * d * ch * cw * 8 * 8 * 27,       # ~3D U-Net conv stack

@@ -53,16 +53,12 @@
 // registers) spill and take 5.3, CH = 4 takes 6.7, and pixel tiles ordered
 // g-major inside a block gain 3%.
 
-#include <cstdint>
-#include <cstring>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "bilinear_variance.cuh"
 
 namespace {
 
 constexpr int MAX_LEVELS = 4;
 constexpr int THREADS = 256;
-constexpr int VIEW_GROUP = 4;   // source views whose z and uv are requested together
 constexpr int MIN_BLOCKS = 3;   // blocks an SM: at most 80 registers a thread
 
 struct Params {
@@ -76,106 +72,6 @@ struct Params {
   int V, G, n, K, ctot;            // K: chunks per point, ΣC / CH
   float inv_v;                     // 1/V rounded to f32
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// CH elements of T at p (aligned to their size), through the read-only path
-template <typename T, int CH>
-__device__ __forceinline__ void load_raw(const T* p, T (&v)[CH]) {
-  constexpr int BYTES = int(sizeof(T)) * CH;
-  if constexpr (BYTES % 16 == 0) {
-#pragma unroll
-    for (int q = 0; q < BYTES / 16; ++q) {
-      const uint4 r = __ldg(reinterpret_cast<const uint4*>(p) + q);
-      memcpy(reinterpret_cast<char*>(v) + 16 * q, &r, 16);
-    }
-  } else if constexpr (BYTES == 8) {
-    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-    memcpy(v, &r, 8);
-  } else if constexpr (BYTES == 4) {
-    const unsigned r = __ldg(reinterpret_cast<const unsigned*>(p));
-    memcpy(v, &r, 4);
-  } else {
-    const unsigned short r = __ldg(reinterpret_cast<const unsigned short*>(p));
-    memcpy(v, &r, 2);
-  }
-}
-
-template <typename T, int CH>
-__device__ __forceinline__ void store_row(T* p, const float (&f)[CH]) {
-  constexpr int BYTES = int(sizeof(T)) * CH;
-  T v[CH];
-#pragma unroll
-  for (int i = 0; i < CH; ++i) v[i] = from_float<T>(f[i]);
-  if constexpr (BYTES % 16 == 0) {
-#pragma unroll
-    for (int q = 0; q < BYTES / 16; ++q) {
-      uint4 r;
-      memcpy(&r, reinterpret_cast<const char*>(v) + 16 * q, 16);
-      reinterpret_cast<uint4*>(p)[q] = r;
-    }
-  } else if constexpr (BYTES == 8) {
-    uint2 r;
-    memcpy(&r, v, 8);
-    *reinterpret_cast<uint2*>(p) = r;
-  } else if constexpr (BYTES == 4) {
-    unsigned r;
-    memcpy(&r, v, 4);
-    *reinterpret_cast<unsigned*>(p) = r;
-  } else {
-    unsigned short r;
-    memcpy(&r, v, 2);
-    *reinterpret_cast<unsigned short*>(p) = r;
-  }
-}
-
-// The blend of one view's four taps at uv (scaled to level l), zero where
-// z ≤ 0: bilinear_sample's arithmetic in its order.
-template <typename T, int CH>
-__device__ __forceinline__ void blend(const T* view, int hl, int wl, int cl, float scale,
-                                      float z, float2 uv, float (&f)[CH]) {
-#pragma unroll
-  for (int i = 0; i < CH; ++i) f[i] = 0.0f;
-  if (!(z > 0.0f)) return;
-  const float u = __fmul_rn(uv.x, scale), v = __fmul_rn(uv.y, scale);
-  const float u0 = floorf(u), v0 = floorf(v);
-  const float du = __fsub_rn(u, u0), dv = __fsub_rn(v, v0);
-  const float eu = __fsub_rn(1.0f, du), ev = __fsub_rn(1.0f, dv);
-  const float w00 = __fmul_rn(eu, ev), w10 = __fmul_rn(du, ev);
-  const float w01 = __fmul_rn(eu, dv), w11 = __fmul_rn(du, dv);
-  // tap (i0 + a, j0 + b) lies in the image where i0 + a ∈ [0, w − 1] and
-  // j0 + b ∈ [0, h − 1]; compared as floats, since u0 and v0 may lie far
-  // outside any integer type (a point close to the camera plane)
-  const bool x0 = u0 >= 0.0f && u0 <= float(wl - 1);
-  const bool x1 = u0 >= -1.0f && u0 <= float(wl - 2);
-  const bool y0 = v0 >= 0.0f && v0 <= float(hl - 1);
-  const bool y1 = v0 >= -1.0f && v0 <= float(hl - 2);
-  const int iu = (x0 || x1) ? int(u0) : 0, iv = (y0 || y1) ? int(v0) : 0;
-  T t00[CH], t10[CH], t01[CH], t11[CH];
-#pragma unroll
-  for (int i = 0; i < CH; ++i) t00[i] = t10[i] = t01[i] = t11[i] = T(0.0f);
-  const T* row = view + (iv * wl + iu) * cl;
-  if (x0 && y0) load_raw<T, CH>(row, t00);
-  if (x1 && y0) load_raw<T, CH>(row + cl, t10);
-  if (x0 && y1) load_raw<T, CH>(row + wl * cl, t01);
-  if (x1 && y1) load_raw<T, CH>(row + (wl + 1) * cl, t11);
-#pragma unroll
-  for (int i = 0; i < CH; ++i)
-    f[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(to_float(t00[i]), w00),
-                                         __fmul_rn(to_float(t10[i]), w10)),
-                               __fmul_rn(to_float(t01[i]), w01)),
-                     __fmul_rn(to_float(t11[i]), w11));
-}
 
 template <typename T, int CH>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
@@ -200,44 +96,17 @@ point_fetch_kernel(const __grid_constant__ Params p) {
   // the loads that depend on no other load go out first: the reference
   // sample's mask, and each group's z and uv
   const bool ref_on = __ldg(p.hyp + ((long long)b * p.G + g) * p.n + pix) > 0.0f;
+  const long long at = (long long)b * S * npts + pt;
   float s1[CH], s2[CH];
-  for (int s0 = 0; s0 < S; s0 += VIEW_GROUP) {
-    float zs[VIEW_GROUP];
-    float2 uvs[VIEW_GROUP];
-#pragma unroll
-    for (int j = 0; j < VIEW_GROUP; ++j) {
-      if (s0 + j < S) {
-        const long long at = ((long long)b * S + s0 + j) * npts + pt;
-        zs[j] = __ldg(p.z + at);
-        uvs[j] = __ldg(reinterpret_cast<const float2*>(p.uv) + at);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < VIEW_GROUP; ++j) {
-      if (s0 + j < S) {
-        float f[CH];
-        blend<T, CH>(lv + (long long)(s0 + j + 1) * view_elems, hl, wl, cl, scale, zs[j],
-                       uvs[j], f);
-#pragma unroll
-        for (int i = 0; i < CH; ++i) {
-          const float sq = __fmul_rn(f[i], f[i]);
-          s1[i] = s0 + j == 0 ? f[i] : __fadd_rn(s1[i], f[i]);
-          s2[i] = s0 + j == 0 ? sq : __fadd_rn(s2[i], sq);
-        }
-      }
-    }
-  }
+  source_moments<T, CH>(lv, view_elems, hl, wl, cl, scale, p.z + at,
+                        reinterpret_cast<const float2*>(p.uv) + at, npts, S, s1, s2);
 
   float r[CH];
   load_raw<float, CH>(p.ref[l] + ((long long)b * p.n + pix) * cl + co, r);
-  float o[CH];
 #pragma unroll
-  for (int i = 0; i < CH; ++i) {
-    const float ri = ref_on ? r[i] : 0.0f;
-    const float mean = __fmul_rn(__fadd_rn(ri, s1[i]), p.inv_v);
-    const float sq_mean = __fmul_rn(__fadd_rn(__fmul_rn(ri, ri), s2[i]), p.inv_v);
-    o[i] = __fsub_rn(sq_mean, __fmul_rn(mean, mean));
-  }
+  for (int i = 0; i < CH; ++i) r[i] = ref_on ? r[i] : 0.0f;
+  float o[CH];
+  view_variance<CH>(r, s1, s2, p.inv_v, o);
   T* out = static_cast<T*>(p.out) + ((long long)b * npts + pt) * p.ctot + k * CH;
   store_row<T, CH>(out, o);
 }

@@ -16,7 +16,8 @@ Three stages, coarse to fine, at 1/4, 1/2 and full image resolution:
   their count, r = ``interval_ratios[s]``), trilinearly resized to (D,
   H/scale, W/scale).
 * **Cost and regression.** ``plane_sweep_volume`` (variance over the
-  views), one ``VolumeConv`` per stage, softmax over D, the expected depth
+  views; on the card at eval one CUDA kernel, ``csrc/plane_sweep.cu``,
+  which writes the volume in the U-Net's dtype), one ``VolumeConv`` per stage, softmax over D, the expected depth
   over the stage's hypotheses, and the probability mass of the 4
   hypotheses around the regressed index (``regressed_confidence``).
 

@@ -21,14 +21,17 @@ map is banded), the kNN indices alone and EdgeConv's gather path (the
 masked-max fast path is eval only), the image pyramid run anew for every
 flow iteration, and no gradient into the kNN or ``flowN_input``.
 
-PointFlow's fetch (``ops/sampling.py::point_fetch``) runs as one CUDA
-kernel where its inputs are CUDA tensors and no gradient is needed: every
-eval forward on the card, and a training forward under ``torch.no_grad``;
-the CPU and training under autograd take the composition it is bit-equal
-to.
+PointFlow's fetch (``ops/sampling.py::point_fetch``) and the coarse
+plane sweep (``ops/cost_volume.py::plane_sweep_volume``) each run as one
+CUDA kernel where their inputs are CUDA tensors and no gradient is needed:
+every eval forward on the card, and a training forward under
+``torch.no_grad``; the CPU and training under autograd take the
+compositions they are bit-equal to. The view-parallel sweep
+(``parallel/view_parallel.py``) keeps its own composition.
 
 Under a profiler (``utils/profiler.py::span``) the forward is a
-``model.coarse`` span and one ``model.flow<n>`` span per iteration; each
+``model.coarse`` span, the sweep inside it ``model.sweep``, and one
+``model.flow<n>`` span per iteration; each
 PointFlow call (each band, where banded) is ``point_flow.fetch``,
 ``point_flow.knn``, ``point_flow.edge_conv`` and ``point_flow.head``.
 """
@@ -318,11 +321,12 @@ class PointMVSNet(nn.Module):
             cams_feat = scale_cams(cams, fw / width, fh / height)
             d_min, d_int, _, _ = cam_depth_range(cams[:, 0])
             depths = depth_hypotheses(d_min, d_int, num_virtual_plane)
-            if self.view_group is not None:
-                cost = view_sharded_plane_sweep(feats, cams_feat, cams_feat[:, 0], depths,
-                                                self.view_group)
-            else:
-                cost = plane_sweep_volume(feats, cams_feat, depths)
+            with profiler.span("model.sweep"):
+                if self.view_group is not None:
+                    cost = view_sharded_plane_sweep(feats, cams_feat, cams_feat[:, 0], depths,
+                                                    self.view_group)
+                else:
+                    cost = plane_sweep_volume(feats, cams_feat, depths)
             logits = self.vol_conv(cost)[..., 0]                 # (B, D, fh, fw)
             prob = torch.softmax(logits.float(), dim=1)
             cur = depth_regression(prob, depths)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for sm_90a into ``_build/<name>-<hash>.so``, then loaded with ``ctypes``.
-The hash covers the source and the flags, so an edited source is rebuilt
-at its next use; nothing is built at import. Pointers and the stream go in
-as ``c_void_p``; every entry returns ``cudaGetLastError()`` and ``check``
+The hash covers the source, the device code the sources share
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt at its next
+use; nothing is built at import. Pointers and the stream go in as
+``c_void_p``; every entry returns ``cudaGetLastError()`` and ``check``
 raises on anything but 0.
 """
 
@@ -44,6 +45,8 @@ SIGNATURES = {
     "window_gather": {"window_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "point_fetch": {
         "point_fetch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "plane_sweep": {
+        "plane_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -62,7 +65,8 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

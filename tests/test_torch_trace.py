@@ -1,8 +1,9 @@
 """The port's profiler spans (``utils/profiler.py::span``) on the CPU:
 a shared no-op with no profiler recording; under ``torch.profiler`` the
 ``pmvs.`` ranges of a ``Predictor`` call (the four predictor phases, the
-model's stages inside ``predictor.model``, PointFlow's four phases inside
-each flow, per band where banded) and of a train step, one group per
+model's stages inside ``predictor.model``, the plane sweep inside the
+coarse stage, PointFlow's four phases inside each flow, per band where
+banded) and of a train step, one group per
 request in order; the same outputs with the profiler on and off; and ``trace(log_dir)``'s
 Chrome trace holding the spans. Tiny model (BN, base 4, EdgeConv (8,),
 flows at 0.25, 0.5 and 1.0 of a 64×128 input, V=2, D=8)."""
@@ -28,6 +29,7 @@ FLOWS = 3
 PHASES = ("point_flow.fetch", "point_flow.knn", "point_flow.edge_conv", "point_flow.head")
 PREDICTOR = ("predictor.prepare", "predictor.to_device", "predictor.model",
              "predictor.to_host")
+STAGES = ["model.coarse", "model.sweep"] + [f"model.flow{n}" for n in range(1, FLOWS + 1)]
 TRAIN = ("train_step.forward", "train_step.loss", "train_step.backward",
          "train_step.optimizer")
 
@@ -125,13 +127,14 @@ def test_predictor_spans_nest(rows, predictors, request_data, tmp_path):
     tops = [s for s in spans if s[0].startswith("predictor.")]
     assert [s[0] for s in tops] == list(PREDICTOR)
 
-    # the model's stages inside predictor.model, nothing inside the others
+    # the model's stages inside predictor.model, nothing inside the others;
+    # the plane sweep alone inside the coarse stage
     model = named(spans, "predictor.model")[0]
     stages = [s[0] for s in inside(spans, model) if s[0].startswith("model.")]
-    assert stages == ["model.coarse"] + [f"model.flow{n}" for n in range(1, FLOWS + 1)]
+    assert stages == STAGES
     for other in ("predictor.prepare", "predictor.to_device", "predictor.to_host"):
         assert inside(spans, named(spans, other)[0]) == []
-    assert inside(spans, named(spans, "model.coarse")[0]) == []
+    assert [s[0] for s in inside(spans, named(spans, "model.coarse")[0])] == ["model.sweep"]
 
     # PointFlow's four phases inside each flow: once, or once per band
     bands = {1: 1, 2: 1, 3: 4 if rows else 1}
@@ -150,10 +153,9 @@ def test_two_requests_are_two_groups_of_spans(predictors, request_data, tmp_path
     tops = [s for s in spans if s[0].startswith("predictor.")]
     assert [s[0] for s in tops] == list(PREDICTOR) * 2
     assert tops[3][2] <= tops[4][1]
-    stages = ["model.coarse"] + [f"model.flow{n}" for n in range(1, FLOWS + 1)]
     models = named(spans, "predictor.model")
     for model in models:
-        assert [s[0] for s in inside(spans, model) if s[0].startswith("model.")] == stages
+        assert [s[0] for s in inside(spans, model) if s[0].startswith("model.")] == STAGES
     assert len(named(spans, "model.coarse")) == 2
     assert len(named(spans, "point_flow.fetch")) == 2 * FLOWS
 
@@ -166,7 +168,7 @@ def test_train_step_spans(train_setup, tmp_path):
     assert [s[0] for s in spans if s[0].startswith("train_step.")] == list(TRAIN)
     forward = named(spans, "train_step.forward")[0]
     assert [s[0] for s in inside(spans, forward) if s[0].startswith("model.")] == \
-        ["model.coarse", "model.flow1", "model.flow2"]
+        ["model.coarse", "model.sweep", "model.flow1", "model.flow2"]
     for name in ("train_step.loss", "train_step.optimizer"):
         assert inside(spans, named(spans, name)[0]) == []
     assert state.step == 8
@@ -201,5 +203,4 @@ def test_trace_writes_the_spans(predictors, request_data, tmp_path):
     with profiler.trace(str(tmp_path / "tb")):
         predictors[0](*request_data)
     names = {s[0] for s in spans_of(tmp_path / "tb" / "trace.json")}
-    assert names == set(PREDICTOR) | set(PHASES) | {"model.coarse"} | {
-        f"model.flow{n}" for n in range(1, FLOWS + 1)}
+    assert names == set(PREDICTOR) | set(PHASES) | set(STAGES)
