@@ -13,9 +13,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            and export phases check that it did (flags off after
            ``Predictor``, ``train()`` and ``test.test``, each entered with
            TF32 allowed), so every f32 gate holds for what users get.
-2. build   nvcc builds the seven kernel sources in csrc/, in parallel: the
-           tuned kNN and masked max, their general kernels, the probe's
-           row gather, PointFlow's fused fetch, the plane sweep.
+2. build   nvcc builds the six kernel sources in csrc/, in parallel: the
+           tuned kNN and the general kNN, the masked max (one kernel for
+           every shape), the probe's row gather, PointFlow's fused fetch,
+           the plane sweep.
 3. dataplane  the C++ host data plane (native/src/dataplane.cpp and
            image.cpp): g++'s version, flags and build time; the C path
            bit-equal to the Python readers on this host (its numpy may
@@ -36,7 +37,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            windowed kNN (idx and mask bit-equal) and masked window max
            (bit-equal, bf16 and f32); the kernel's device time
            (torch.profiler), the plain version's time (CUDA events), and
-           the bound of the same work. Then inputs meant to break them:
+           the bound of the same work (the masked max at G = 5, window 5
+           stages 4x32 tiles of 64-byte chunks). Then inputs meant to break
+           them:
            the kNN on integer-lattice points (exact d² ties), on
            duplicated hypothesis levels and on grids that are not a
            multiple of its tile; the masked max on NaN rows, on {−0, +0,
@@ -124,7 +127,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            D=96, 3 flows) on scan 1 of an eval-release tree of PNGs the port
            writes (its pixels' digest equal to the one the JAX package's
            outputs were computed on): the test CLI in f32 then bf16, 3 kNN
-           and 9 masked-max launches per map, all tuned, no plain version on
+           (tuned) and 9 masked-max launches per map, no plain version on
            a CUDA tensor; the fuse CLI (torch on the card) against the
            scene's true cloud. Gates against the JAX package's outputs
            beside the checkpoint (expected.npz): f32 flow3 and prob of the
@@ -155,8 +158,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            and no masked max (GroupNorm takes EdgeConv's gather path in
            eval too, in both packages), no plain version on a CUDA tensor,
            the first flow eval step's kernel calls bit-equal to their plain
-           versions, and the masked max (tuned) bit-equal to its plain
-           version on that step's EdgeConv z rows and kNN masks; first →
+           versions, and the masked max bit-equal to its plain version
+           on that step's EdgeConv z rows and kNN masks; first →
            last numbers, steady step times. Then the
            closed loop from the trained and the initial weights (both saved
            by the Checkpointer): the test CLI on scan 1 of an eval tree of
@@ -194,22 +197,19 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            (csrc/window_knn_general.cu) bit-equal to its plain version at
            (G, k, win) in ENV_KNN and, forced, at the tuned (5, 16, 5), on
            a 37x53 grid (also against the CPU) and the flow1 grid, on
-           random, lattice and duplicated-level points; the general masked
-           max (csrc/masked_window_max_general.cu) at each of those (G,
-           win), F 10/32/64/160, bf16 and f32, NaN rows and {-0, +0, ±1},
-           kNN and random masks (and the tuned kernel where the rule picks
-           it, F 160 included), and at F = 2^21 + 8 bf16 (past 65535 blocks
-           of channel chunks). Device time of the general kernels at the
-           paper-eval flow grids with k = 8, window 5 and 3, beside the
-           plain versions and the bound, the tuned kernels' time per
-           request beside the one PERF.md records, and the general kernels
-           forced on the tuned kernels' inputs (k = 16, window 5), bit-equal
-           to them. Paper-eval requests at
-           MODEL.KNN 8,
-           windows 5 and 3: 3 general kNN launches, 9 masked-max launches
-           (tuned at window 5 with G = 5, by the dispatch rule; general at
-           window 3), no plain version on a CUDA tensor, latency. Card
-           against CPU at 64x128 (Predictor depth with
+           random, lattice and duplicated-level points; the masked max
+           (csrc/masked_window_max.cu) at each of those (G, win), F
+           10/32/64/160, bf16 and f32, NaN rows and {-0, +0, ±1}, kNN and
+           random masks, and at F = 2^21 + 8 bf16 (past 65535 blocks of
+           channel chunks). Device time of the general kNN and the masked
+           max at the paper-eval flow grids with k = 8, window 5 and 3,
+           beside the plain versions and the bound, the tuned kNN's and the
+           masked max's time per request at k = 16 beside the ones PERF.md
+           records, and the general kNN forced on the tuned kNN's inputs
+           (k = 16, window 5), bit-equal to it. Paper-eval requests at
+           MODEL.KNN 8, windows 5 and 3: 3 general kNN launches, 9
+           masked-max launches, no plain version on a CUDA tensor, latency.
+           Card against CPU at 64x128 (Predictor depth with
            tests/test_full_parity.py's bars, one flow train step with
            phase_train_parity's) at KNN 8, KNN 8 with window 3, and
            FLOW_INTERVAL_M 3 with window 3 (G = 7); one train step with
@@ -224,8 +224,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            four default tokens and unbanded 1280x1024 and 1920x1024 (T&T's
            1920x1080 frame after the base-64 crop), paper-eval model (V=5,
            D=96, bf16, BN eval), weights seed 0: maps/s, latency and peak
-           memory per token, no error, launches per map by variant (3 kNN
-           and 9 masked max unbanded, all tuned; a kNN per band and three
+           memory per token, no error, launches per map by kernel (3 kNN,
+           all tuned, and 9 masked max unbanded; a kNN per band and three
            masked max per band banded), no plain version on a CUDA tensor.
            Then the forward at 1280x1024 with FLOW_CHUNK_ROWS 0, 64, 32 and
            128 on the same inputs and weights, every banded map bit-equal to
@@ -252,14 +252,15 @@ Phases, one or more lines each; any failure raises and exits non-zero:
            bench.py's sections (stages_s, V3_D48_fullres, V5_D96_batch2,
            roofline at the card's peaks, train_step with its stages) plus
            ``device``, and no error. Then one forward on the headline's
-           inputs in this process: 3 kNN and 9 masked-max launches, all
-           tuned, a finite flow3. Prints the headline, the sections' times
+           inputs in this process: 3 kNN launches, all tuned, and 9
+           masked-max launches, a finite flow3. Prints the headline, the sections' times
            and each roofline row's ceiling beside the measured stage that
            holds it.
 
 Then the script's time from the build's start, a JSON line of
-per-kernel numbers (``launches`` per serving request for the tuned
-kernels, per KNN 8 request for the general ones; per train step and
+per-kernel numbers (``launches`` per serving request for the tuned kNN
+and the masked max, per KNN 8 request for the general kNN, with the
+masked max's time per KNN 8 request beside its own; per train step and
 validation batch in f32 and in bf16; per learning flow step, eval step
 and closed-loop map in each dtype; per exported map; per request from
 converted weights; per map from the JAX package's trained checkpoint;
@@ -1509,8 +1510,8 @@ def phase_train_bf16(dev, f32: dict) -> dict:
 
 LEARN_H, LEARN_W, LEARN_STEPS = 64, 128, 30     # the learning script's defaults
 LEARN_DTYPES = (("f32", "float32"), ("bf16", "bfloat16"))
-# per flow train step / flow eval step / exported map: (kNN, masked max), all
-# tuned. No masked max: the run is GroupNorm's, and EdgeConv takes its gather
+# per flow train step / flow eval step / exported map: (kNN, masked max), the
+# kNN all tuned. No masked max: the run is GroupNorm's, and EdgeConv takes its gather
 # path under GN in eval too, in both packages (the max commutes only with BN's
 # fixed affine or no norm); learn_dtype holds the masked max to its plain
 # version on the trained EdgeConv inputs instead
@@ -1518,20 +1519,19 @@ LEARN_LAUNCHES = {"train": (2, 0), "eval": (2, 0), "map": (3, 0)}
 
 
 def launch_delta(before: dict, after: dict) -> dict:
-    return {n: {v: after[n][v] - before[n][v] for v in after[n]} for n in after}
+    return {n: after[n] - before[n] for n in after}
 
 
 def tuned_only(delta: dict, want: tuple) -> bool:
     """``delta`` (launch_counts difference) is ``want`` (kNN, masked max)
-    launches, every one of them the tuned kernel's."""
-    return all(delta[n] == {"tuned": k, "general": 0}
-               for n, k in zip(("window_knn", "masked_window_max"), want))
+    launches, every kNN the tuned kernel's."""
+    return delta == {"window_knn": want[0], "window_knn_general": 0, "masked_window_max": want[1]}
 
 
 class observe_learning_steps:
     """Inside the block, every train and eval step of the learning run
     (``pointmvsnet_tpu_torch/benchmarks/train_synthetic.py``) is
-    synchronized and logged: kind, phase, launches by kernel and variant,
+    synchronized and logged: kind, phase, launches by kernel (``launch_counts``),
     host ms. The kernel calls of the first flow eval step are recorded
     (``record_kernel_calls``), and so are its EdgeConv calls' inputs
     (module, x, keywords)."""
@@ -1634,12 +1634,11 @@ def closed_loop(label: str, dtype: str, weights: dict, work: str, dev) -> dict:
             "1.0", "OUTPUT_DIR", os.path.join(work, f"export_{name}"), "TEST.WEIGHT", weight])
         t_cli = time.perf_counter() - t0
         n = summary["maps"]
-        per_map = {k: {v: c // max(n, 1) for v, c in d.items()}
-                   for k, d in launch_counts().items()}
+        per_map = {k: c // max(n, 1) for k, c in launch_counts().items()}
         check(n == ts.NUM_VIEWS and tuned_only(launch_counts(), tuple(
             n * c for c in LEARN_LAUNCHES["map"])),
               f"learn {label} closed loop ({name}): {n} maps, launches {launch_counts()}, "
-              f"want {ts.NUM_VIEWS} maps and {LEARN_LAUNCHES['map']} tuned per map")
+              f"want {ts.NUM_VIEWS} maps and {LEARN_LAUNCHES['map']} per map, kNN tuned")
         flow3 = io.load_pfm(os.path.join(depth_dir, "scan1", "00000000_flow3.pfm"))
         check(flow3.shape == (LEARN_H, LEARN_W) and np.isfinite(flow3).all(),
               f"learn {label} closed loop ({name}): flow3 {flow3.shape} not finite")
@@ -1712,12 +1711,12 @@ def learn_dtype(label: str, dtype: str, work: str, dev) -> dict:
             bad = [e["launches"] for e in obs.log if e["kind"] == kind and e["flow"] == flow
                    and not tuned_only(e["launches"], want)]
             check(not bad, f"learn {label}: {kind} steps ({'flow' if flow else 'coarse'}) "
-                           f"launched {bad[:2]}, want {want} tuned")
+                           f"launched {bad[:2]}, want {want}, kNN tuned")
     check(obs.calls is not None, f"learn {label}: no flow eval step recorded")
     shapes = check_kernel_calls(obs.calls, f"learn {label} flow eval step")
     reset_launches()
     mwm_shapes = check_masked_max_on(obs.edge_inputs, f"learn {label} flow eval step")
-    check(launch_counts()["masked_window_max"] == {"tuned": len(obs.edge_inputs), "general": 0},
+    check(launch_counts()["masked_window_max"] == len(obs.edge_inputs),
           f"learn {label}: the masked max on the EdgeConv inputs ran {launch_counts()}")
     ms = {(k, f): [e["ms"] for e in obs.log if e["kind"] == k and e["flow"] == f]
           for k in ("train", "eval") for f in (False, True)}
@@ -1735,9 +1734,9 @@ def learn_dtype(label: str, dtype: str, work: str, dev) -> dict:
           f"{f_last.get('<1_pct_flow2', 0):.4f}; lr coarse {c_first['lr']:g} -> "
           f"{c_last['lr']:g}, flow {f_first['lr']:g} -> {f_last['lr']:g}; skipped steps 0, "
           f"parameters finite; launches per flow train step kNN/masked-max "
-          f"{LEARN_LAUNCHES['train']}, per flow eval step {LEARN_LAUNCHES['eval']}, all tuned, "
+          f"{LEARN_LAUNCHES['train']}, per flow eval step {LEARN_LAUNCHES['eval']}, kNN tuned, "
           f"0 in coarse steps (GN: EdgeConv's gather path); one flow eval step's kernel calls "
-          f"bit-equal to their plain versions ({shapes}), and the masked max (tuned) on its "
+          f"bit-equal to their plain versions ({shapes}), and the masked max on its "
           f"{len(obs.edge_inputs)} EdgeConv calls' z rows and kNN masks ({mwm_shapes}); "
           f"steady ms (median of each phase's second epoch, synchronized) train coarse "
           f"{steady[('train', False)]:.2f} flow {steady[('train', True)]:.2f}, eval coarse "
@@ -2463,7 +2462,7 @@ def phase_trained(dev) -> tuple:
             counts = launch_counts()
             check(n == v and tuned_only(counts, (3 * n, 9 * n)),
                   f"trained {dtype}: {n} maps, launches {counts}, want {v} maps and 3 kNN "
-                  f"and 9 masked max per map, all tuned")
+                  f"(tuned) and 9 masked max per map")
             stem = os.path.join(depth_dir, "scan1", f"{view:08d}")
             maps = {k: io.load_pfm(f"{stem}_{k}.pfm") for k in ("flow3", "prob")}
             check(maps["flow3"].shape == (h, w) and all(np.isfinite(m).all()
@@ -2478,11 +2477,11 @@ def phase_trained(dev) -> tuple:
                   all(np.isfinite(r[k]) for k in ("accuracy", "completeness", "overall")),
                   f"trained {dtype}: fused {r}")
             runs[dtype] = dict(maps=maps, fused=r,
-                               per_map={k: c["tuned"] // n for k, c in counts.items()})
+                               per_map={k: c // n for k, c in counts.items()})
             print(f"trained: {dtype} test CLI from tests/data/orbax_trained at {w}x{h} V={v} "
                   f"D={d}: {n} maps, {summary['maps_per_s']:.3f} maps/s over the loop, "
                   f"{summary['maps_per_s_after_first']:.3f} after the first map, {t_cli:.1f} s "
-                  f"with model build and weight load; tuned launches per map "
+                  f"with model build and weight load; launches per map "
                   f"{runs[dtype]['per_map']}; fuse CLI (torch on the card, prob {prob}, "
                   f"{min_views} views, --gt_dir with {len(gt)} true points) {t_fuse:.2f} s: "
                   f"{r['n_points']} points, accuracy {r['accuracy']:.4f} completeness "
@@ -3193,22 +3192,26 @@ ENV_K = 8                            # MODEL.KNN of the timed shapes and the req
 # MODEL.<key> of the card-vs-CPU parity cases
 ENV_PARITY = [{"KNN": 8}, {"KNN": 8, "KNN_WINDOW": 3}, {"FLOW_INTERVAL_M": 3, "KNN_WINDOW": 3}]
 ENV_BAND_CR = 64                     # FLOW_CHUNK_ROWS of the banded train step at 640x512
-# the tuned kernels' per-request device time and the unbanded f32 train
-# step as PERF.md records them (NVIDIA H100 80GB HBM3, 700 W)
-RECORDED_REQUEST_MS = {"window_knn": 0.4184, "masked_window_max": 1.12438}
+# the tuned kNN's and the masked max's per-request device time (k = 16) and
+# the unbanded f32 train step as PERF.md records them (NVIDIA H100 80GB
+# HBM3, 700 W)
+RECORDED_REQUEST_MS = {"window_knn": 0.4184, "masked_window_max": 1.09635}
 UNBANDED_STEP = "779.0-807.6 ms, 46.88 GiB"
 
 
 def reset_launches() -> None:
     from pointmvsnet_tpu_torch.ops import edge, knn
-    for mod in (knn, edge):
-        mod.launches = 0
-        mod.launches_by.update(tuned=0, general=0)
+    knn.launches = edge.launches = 0
+    knn.launches_by.update(tuned=0, general=0)
 
 
 def launch_counts() -> dict:
+    """Launches since ``reset_launches``: the tuned kNN ("window_knn"), the
+    general kNN and the masked max."""
     from pointmvsnet_tpu_torch.ops import edge, knn
-    return {"window_knn": dict(knn.launches_by), "masked_window_max": dict(edge.launches_by)}
+    return {"window_knn": knn.launches_by["tuned"],
+            "window_knn_general": knn.launches_by["general"],
+            "masked_window_max": edge.launches}
 
 
 class forbid_plain_on_cuda:
@@ -3235,12 +3238,12 @@ class forbid_plain_on_cuda:
 
 
 def envelope_kernels(dev) -> dict:
-    """The general kernels against their plain versions, bit for bit, on
-    the card and (small grids) on the CPU: the kNN at every ENV_KNN shape
-    (and forced at the tuned kernel's (5, 16, 5)) on ENV_GRIDS and
-    ``point_cases``; the masked max at every (G, window) of those, F
-    ENV_F, bf16 and f32, NaN rows and {-0, +0, ±1}, kNN and random masks
-    (and the tuned kernel where the rule picks it, F 160 included). →
+    """The general kNN and the masked max against their plain versions,
+    bit for bit, on the card and (small grids) on the CPU: the kNN at every
+    ENV_KNN shape (and forced at the tuned kernel's (5, 16, 5)) on
+    ENV_GRIDS and ``point_cases``; the masked max at every (G, window) of
+    those, F ENV_F, bf16 and f32, NaN rows and {-0, +0, ±1}, kNN and random
+    masks, and at ENV_WIDE. →
     {"window_knn": max |Δidx|, "masked_window_max": max |Δ| off NaN}."""
     from pointmvsnet_tpu_torch.ops import edge, knn
 
@@ -3280,17 +3283,15 @@ def envelope_kernels(dev) -> dict:
                         ref = edge.masked_window_max_plain(z, m, grid, win)
                         cpu = (edge.masked_window_max_plain(z.cpu(), m.cpu(), grid, win)
                                if f == 10 and mcase == "knn" else ref.cpu())
-                        tuned = edge.kernel_variant(g, win, f, dtype, b) == "tuned"
-                        for variant in ("general", "tuned") if tuned else ("general",):
-                            out = edge.masked_window_max_cuda(z, m, grid, win, variant=variant)
-                            torch.cuda.synchronize()
-                            check(same_bits(out, ref) and same_bits(out.cpu(), cpu),
-                                  f"envelope: {variant} masked_window_max {kind} {mcase}-mask "
-                                  f"grid {grid} win={win} F={f} {dtype}: kernel != plain")
-                            d = (out.float() - ref.float()).abs()
-                            err["masked_window_max"] = max(err["masked_window_max"],
-                                                           float(d[~torch.isnan(d)].max()))
-                            n_mwm += 1
+                        out = edge.masked_window_max_cuda(z, m, grid, win)
+                        torch.cuda.synchronize()
+                        check(same_bits(out, ref) and same_bits(out.cpu(), cpu),
+                              f"envelope: masked_window_max {kind} {mcase}-mask grid {grid} "
+                              f"win={win} F={f} {dtype}: kernel != plain")
+                        d = (out.float() - ref.float()).abs()
+                        err["masked_window_max"] = max(err["masked_window_max"],
+                                                       float(d[~torch.isnan(d)].max()))
+                        n_mwm += 1
                         if kind == "nan":
                             check(bool(torch.isnan(ref).any()), "no NaN reached the output")
                         elif mcase == "knn":
@@ -3310,15 +3311,15 @@ def envelope_kernels(dev) -> dict:
             out = edge.masked_window_max_cuda(z, m, grid, win)
             torch.cuda.synchronize()
             check(same_bits(out, edge.masked_window_max_plain(z, m, grid, win)),
-                  f"envelope: general masked_window_max {kind} {mcase}-mask grid {grid} "
+                  f"envelope: masked_window_max {kind} {mcase}-mask grid {grid} "
                   f"win={win} F={f} bf16: kernel != plain")
             n_mwm += 1
             del z, out
     print(f"envelope: general window_knn bit-equal to the plain version in {n_knn} cases "
           f"((G, k, win) {ENV_KNN} and (5, 16, 5) forced; grids {ENV_GRIDS}; random, integer "
           f"lattice, duplicated levels; the {ENV_GRIDS[0]} grid against the CPU too); "
-          f"masked_window_max in {n_mwm} cases (general at every (G, win) {sorted(masks)}, "
-          f"tuned where the rule picks it; F {ENV_F}; NaN rows, {{-0, +0, ±1}}; kNN and random "
+          f"masked_window_max in {n_mwm} cases (every (G, win) {sorted(masks)}; F {ENV_F}; "
+          f"NaN rows, {{-0, +0, ±1}}; kNN and random "
           f"masks; bf16, f32; F=10 against the CPU too; and G={g} win={win} grid {grid} "
           f"F={f} bf16, {-(-f * 2 // plan.chunk_bytes)} chunks of {plan.chunk_bytes} B)",
           flush=True)
@@ -3326,12 +3327,12 @@ def envelope_kernels(dev) -> dict:
 
 
 def envelope_timing(dev) -> dict:
-    """Device time (CUPTI) of the general kernels at the paper-eval flow
-    grids with k = ENV_K, window 5 and 3 (the masked max forced to the
-    general kernel at window 5), beside the plain versions and the bound;
-    the tuned kernels' per-request time at k = 16 beside the recorded one,
-    and the general kernels forced on the tuned kernels' inputs (k = 16,
-    window 5: "<name>_general_at_tuned"), bit-equal to the tuned ones. →
+    """Device time (CUPTI) of the general kNN and the masked max at the
+    paper-eval flow grids with k = ENV_K, window 5 and 3
+    ("masked_window_max_knn8"), beside the plain versions and the bound;
+    the tuned kNN's and the masked max's per-request time at k = 16 beside
+    the recorded one, and the general kNN forced on the tuned kNN's inputs
+    (k = 16, window 5: "window_knn_general_at_tuned"), bit-equal to it. →
     {(kernel, window): [ms, plain_ms, bound_ms] per request, with the
     bound's kind and the time's source}."""
     from pointmvsnet_tpu_torch.ops import edge, knn
@@ -3351,7 +3352,7 @@ def envelope_timing(dev) -> dict:
         idx16, mask16 = knn.window_knn_cuda(pts, grid)
         ms, how = cupti_ms(lambda: knn.window_knn_cuda(pts, grid), "window_knn_kernel")
         add(("window_knn", 5), 1, ms, 0.0, 0.0, "bytes", how)
-        # the general kernels forced at the tuned kernels' shape, same inputs
+        # the general kNN forced at the tuned kNN's shape, same inputs
         forced = knn.window_knn_cuda(pts, grid, variant="general")
         torch.cuda.synchronize()
         check(torch.equal(forced[0], idx16) and torch.equal(forced[1], mask16),
@@ -3362,15 +3363,7 @@ def envelope_timing(dev) -> dict:
         for f, z in zs.items():
             ms, how = cupti_ms(lambda: edge.masked_window_max_cuda(z, mask16, grid),
                                "masked_window_max_kernel")
-            add(("masked_window_max", 5), EDGE_F.count(f), ms, 0.0, 0.0, "bytes", how)
-            out = edge.masked_window_max_cuda(z, mask16, grid, variant="general")
-            torch.cuda.synchronize()
-            check(same_bits(out, edge.masked_window_max_cuda(z, mask16, grid)),
-                  f"envelope: general masked_window_max forced at flow{fi} F={f} != tuned")
-            ms, how = cupti_ms(lambda: edge.masked_window_max_cuda(z, mask16, grid,
-                                                                   variant="general"),
-                               "masked_window_max_general_kernel")
-            add(("masked_window_max_general_at_tuned", 5), EDGE_F.count(f), ms, 0.0,
+            add(("masked_window_max", 5), EDGE_F.count(f), ms, 0.0,
                 *bound_ms(*mwm_bound(z, mask16)), how)
         for win in (5, 3):
             idx, mask = knn.window_knn_cuda(pts, grid, ENV_K, win)
@@ -3387,27 +3380,26 @@ def envelope_timing(dev) -> dict:
             line = [f"window_knn_general {ms:.4f} ms ({how}), plain {pms:.3f}, bound {bb:.4f} "
                     f"({by})"]
             for f, z in zs.items():
-                out = edge.masked_window_max_cuda(z, mask, grid, win, variant="general")
+                out = edge.masked_window_max_cuda(z, mask, grid, win)
                 torch.cuda.synchronize()
                 check(same_bits(out, edge.masked_window_max_plain(z, mask, grid, win)),
                       f"envelope: masked_window_max flow{fi} win={win} F={f}: kernel != plain")
-                ms, how = cupti_ms(lambda: edge.masked_window_max_cuda(
-                    z, mask, grid, win, variant="general"), "masked_window_max_general_kernel")
+                ms, how = cupti_ms(lambda: edge.masked_window_max_cuda(z, mask, grid, win),
+                                   "masked_window_max_kernel")
                 pms = time_ms(lambda: edge.masked_window_max_plain(z, mask, grid, win),
                               reps=3, warmup=1)
                 bb, by = bound_ms(*mwm_bound(z, mask))
-                add(("masked_window_max_general", win), EDGE_F.count(f), ms, pms, bb, by, how)
-                line.append(f"masked_window_max_general F={f} bf16 {ms:.4f} ms ({how}), plain "
+                add(("masked_window_max_knn8", win), EDGE_F.count(f), ms, pms, bb, by, how)
+                line.append(f"masked_window_max F={f} bf16 {ms:.4f} ms ({how}), plain "
                             f"{pms:.3f}, bound {bb:.4f} ({by})")
             print(f"envelope: flow{fi} grid {grid} k={ENV_K} win={win}: {'; '.join(line)}",
                   flush=True)
     for (name, win), t in sorted(per.items()):
         if name in RECORDED_REQUEST_MS:
-            base = f" (recorded: {RECORDED_REQUEST_MS[name]} ms; tuned, k=16)"
+            base = f" (recorded: {RECORDED_REQUEST_MS[name]} ms; k=16)"
         elif name.endswith("_at_tuned"):
-            tuned = per[(name.split("_general")[0], 5)][0]
-            base = (f" (forced at k=16 win=5; the tuned kernel on the same inputs {tuned:.5f} "
-                    f"ms), bound {t[2]:.5f} ms")
+            base = (f" (forced at k=16 win=5; the tuned kernel on the same inputs "
+                    f"{per[('window_knn', 5)][0]:.5f} ms), bound {t[2]:.5f} ms")
         else:
             base = f", plain {t[1]:.1f} ms, bound {t[2]:.5f} ms ({'+'.join(sorted(t[3]))})"
         print(f"envelope: per paper-eval request (flow1-3, F=(32,32,64) bf16) {name} win={win}: "
@@ -3418,9 +3410,8 @@ def envelope_timing(dev) -> dict:
 def envelope_requests() -> dict:
     """Paper-eval requests (640x512, V=5, D=96, bf16) at MODEL.KNN 8,
     window 5 and window 3: 3 kNN launches (general) and 9 masked-max
-    launches (tuned at window 5, G = 5 by the dispatch rule; general at
-    window 3) per request, no plain version on a CUDA tensor, finite
-    maps; latency, host clock. → {window: launches by kernel and variant}."""
+    launches per request, no plain version on a CUDA tensor, finite maps;
+    latency, host clock. → {window: launches by kernel}."""
     import gc
 
     from pointmvsnet_tpu_torch.config import get_default_cfg
@@ -3437,9 +3428,7 @@ def envelope_requests() -> dict:
         pred = Predictor(cfg, device="cuda")
         pred(images[0], cams[0])
         lat = []
-        want = {"window_knn": {"tuned": 0, "general": 3},
-                "masked_window_max": {"tuned": 9 if win == 5 else 0,
-                                      "general": 0 if win == 5 else 9}}
+        want = {"window_knn": 0, "window_knn_general": 3, "masked_window_max": 9}
         for r in range(2):
             reset_launches()
             with forbid_plain_on_cuda():
@@ -3493,8 +3482,7 @@ def envelope_banded_train(dev, per_train=None) -> dict:
         torch.cuda.synchronize()
         got = launch_counts()
         # 2 flow steps and 1 flow validation batch, banded alike
-        want = {"window_knn": {"tuned": 3 * n_knn, "general": 0},
-                "masked_window_max": {"tuned": n_edge, "general": 0}}
+        want = {"window_knn": 3 * n_knn, "window_knn_general": 0, "masked_window_max": n_edge}
         check(state.step == 4 and state.optimizer.skipped_steps == 0 and got == want,
               f"envelope banded train(): step {state.step}, skipped "
               f"{state.optimizer.skipped_steps}, launches {got}, want {want}")
@@ -3514,8 +3502,7 @@ def envelope_banded_train(dev, per_train=None) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             got = launch_counts()
-            check(got["window_knn"] == {"tuned": n_knn, "general": 0}
-                  and sum(got["masked_window_max"].values()) == 0,
+            check(got == {"window_knn": n_knn, "window_knn_general": 0, "masked_window_max": 0},
                   f"envelope banded step: launches {got}, want {n_knn} kNN")
             check(all(np.isfinite(float(v)) for v in losses.values()), f"losses {losses}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3539,7 +3526,8 @@ def envelope_banded_train(dev, per_train=None) -> dict:
 def phase_envelope(dev, per_train=None) -> dict:
     """The kernels over the Pallas kernels' whole envelope, and banded
     PointFlow in training (see the module docstring). → the numbers of the
-    general kernels' rows of the kernels line."""
+    general kNN's row and of the masked max's KNN 8 keys of the kernels
+    line."""
     t0 = time.perf_counter()
     err = envelope_kernels(dev)
     timing = envelope_timing(dev)
@@ -3571,17 +3559,17 @@ TT_VIEWS = 6
 
 def tanks_want(h: int, cr: int) -> dict:
     """Launches of one T&T map at input height ``h`` and FLOW_CHUNK_ROWS
-    ``cr``: a kNN per flow band, a masked max per band and EdgeConv, all
-    tuned."""
+    ``cr``: a kNN (tuned) per flow band, a masked max per band and
+    EdgeConv."""
     bands = sum(n_bands(int(h * s), cr) for s in (0.25, 0.5, 1.0))
-    return {"window_knn": {"tuned": bands, "general": 0},
-            "masked_window_max": {"tuned": len(EDGE_F) * bands, "general": 0}}
+    return {"window_knn": bands, "window_knn_general": 0,
+            "masked_window_max": len(EDGE_F) * bands}
 
 
 def tanks_sweep(dev, work: str) -> dict:
     """``benchmarks/tt_sweep.py``'s main on its default tokens and
     TT_EXTRA_TOKENS, out file in ``work``: no token may record an error;
-    each token's launches per map (its 3 · 6 forwards) by variant, no
+    each token's launches per map (its 3 · 6 forwards) by kernel, no
     plain version on a CUDA tensor. → {token: record}."""
     from pointmvsnet_tpu_torch.benchmarks import tt_sweep
 
@@ -3592,9 +3580,8 @@ def tanks_sweep(dev, work: str) -> dict:
     def measure(model, images, cams, kwargs, iters):
         reset_launches()
         res = real(model, images, cams, kwargs, iters=iters)
-        counted.append({n: {v: c // (3 * iters) for v, c in by.items()}
-                        for n, by in launch_counts().items()})
-        check(all(c % (3 * iters) == 0 for by in launch_counts().values() for c in by.values()),
+        counted.append({n: c // (3 * iters) for n, c in launch_counts().items()})
+        check(all(c % (3 * iters) == 0 for c in launch_counts().values()),
               f"tanks sweep: launches {launch_counts()} over {3 * iters} forwards")
         return res
 
@@ -3614,8 +3601,8 @@ def tanks_sweep(dev, work: str) -> dict:
         want = tanks_want(h, cr)
         check(got == want, f"tanks sweep {tok}: launches per map {got}, want {want}")
         print(f"tanks: sweep {tok}: {json.dumps(rec)}; launches per map kNN "
-              f"{got['window_knn']['tuned']} masked-max {got['masked_window_max']['tuned']} "
-              f"(all tuned); {smi_line()}", flush=True)
+              f"{got['window_knn']} (tuned) masked-max {got['masked_window_max']}; "
+              f"{smi_line()}", flush=True)
     print(f"tanks: sweep of {len(tokens)} tokens in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return {tok: dict(res[tok], launches=got) for tok, got in zip(tokens, counted)}
@@ -3624,7 +3611,7 @@ def tanks_sweep(dev, work: str) -> dict:
 def tanks_kernels(dev) -> tuple:
     """The paper-eval forward (bench.build, tt_sweep's KWARGS, weights
     seed 0) at each of TT_GRIDS unbanded, and at TT_GRIDS[0] at every
-    FLOW_CHUNK_ROWS of TT_BANDS: launches per map by variant, no plain
+    FLOW_CHUNK_ROWS of TT_BANDS: launches per map by kernel, no plain
     version on a CUDA tensor, every banded map bit-equal to the unbanded
     one; at each grid unbanded, every kernel call bit-equal to its plain
     version on its real inputs (NaN positions and the sign of zero
@@ -3659,9 +3646,9 @@ def tanks_kernels(dev) -> tuple:
             got, want = launch_counts(), tanks_want(h, cr)
             check(got == want, f"tanks {w}x{h} FLOW_CHUNK_ROWS={cr}: launches {got}, want {want}")
             n_fetch = sampling.launches
-            check(n_fetch == want["window_knn"]["tuned"],
+            check(n_fetch == want["window_knn"],
                   f"tanks {w}x{h} FLOW_CHUNK_ROWS={cr}: {n_fetch} point-fetch launches, want "
-                  f"{want['window_knn']['tuned']} (one a flow band)")
+                  f"{want['window_knn']} (one a flow band)")
             if cr == 0:
                 fetch_launches[f"{w}x{h}"] = n_fetch
             check(all(bool(torch.isfinite(out[k]).all()) for k in ("coarse_depth_map", "flow3")),
@@ -3680,8 +3667,8 @@ def tanks_kernels(dev) -> tuple:
                             f"{k} {t[0]:.5f} ({t[3]}) / {t[1]:.1f} / {t[2]:.5f}"
                             for k, t in totals.items()))
             print(f"tanks: {w}x{h} V={VIEWS} D={KWARGS['num_virtual_plane']} bf16 "
-                  f"FLOW_CHUNK_ROWS={cr}: launches per map kNN {got['window_knn']['tuned']} "
-                  f"masked-max {got['masked_window_max']['tuned']} (tuned), point-fetch "
+                  f"FLOW_CHUNK_ROWS={cr}: launches per map kNN {got['window_knn']} (tuned) "
+                  f"masked-max {got['masked_window_max']}, point-fetch "
                   f"{n_fetch}, first forward "
                   f"{ms:.1f} ms{note}; {smi_line()}", flush=True)
             del model, out, calls
@@ -3701,7 +3688,7 @@ def tanks_kernels(dev) -> tuple:
 def tanks_export(dev, work: str) -> dict:
     """The test CLI (configs/tanks.yaml, bf16, weights from RNG_SEED,
     SHAPE_SET TT_SHAPE_SET) on a T&T tree of TT_SCENES JPEGs: each scene's
-    shape, every file, 3 kNN and 9 masked-max launches per map (tuned),
+    shape, every file, 3 kNN (tuned) and 9 masked-max launches per map,
     every map's flow3 bit-equal to Predictor's on the same item; maps/s over
     the loop and after each shape's first map, the forward's ms and peak
     memory per shape, the loader's ms per item and the loop's wait for it.
@@ -3840,8 +3827,8 @@ def tanks_export(dev, work: str) -> dict:
     print(f"tanks: test CLI (configs/tanks.yaml, bf16, weights from RNG_SEED, SHAPE_SET "
           f"{TT_SHAPE_SET}): {n_maps} maps, {summary['maps_per_s']:.3f} maps/s over the loop, "
           f"{summary['maps_per_s_after_first']:.3f} after the first map, {t_cli:.1f} s with model "
-          f"build; {'; '.join(report)}; launches per map kNN {want['window_knn']['tuned']} "
-          f"masked-max {want['masked_window_max']['tuned']} (tuned); every flow3 bit-equal to "
+          f"build; {'; '.join(report)}; launches per map kNN {want['window_knn']} (tuned) "
+          f"masked-max {want['masked_window_max']}; every flow3 bit-equal to "
           f"Predictor's on the same item; {smi_line()}", flush=True)
 
     t0 = time.perf_counter()
@@ -3881,7 +3868,7 @@ def tanks_export(dev, work: str) -> dict:
 
 def phase_tanks(dev) -> dict:
     """Tanks & Temples at its own frame sizes (see the module docstring).
-    → the numbers of the tuned kernels' T&T keys of the kernels line."""
+    → the numbers of the T&T keys of the kNN's and the masked max's rows."""
     import gc
 
     gc.collect()
@@ -3906,8 +3893,7 @@ BENCH_LINE_KEYS = ["metric", "value", "unit", "vs_baseline", "baseline_source"]
 BENCH_DETAILS_KEYS = ["complete", "headline_latency_s", "measured_at", "baseline_source",
                       "device", "stages_s", "V3_D48_fullres", "V5_D96_batch2", "roofline",
                       "train_step"]
-BENCH_LAUNCHES = {"window_knn": {"tuned": 3, "general": 0},
-                  "masked_window_max": {"tuned": 9, "general": 0}}
+BENCH_LAUNCHES = {"window_knn": 3, "window_knn_general": 0, "masked_window_max": 9}
 
 
 def roofline_span(stage: str) -> str:
@@ -3924,7 +3910,7 @@ def phase_bench(dev) -> dict:
     finite value above 0, no other line; the details file complete, with
     every section and no error, and nothing else written. Then, in this
     process, one forward on the headline's inputs (``bench.headline``): 3
-    kNN and 9 masked-max launches, all tuned, no plain version on a CUDA
+    kNN (tuned) and 9 masked-max launches, no plain version on a CUDA
     tensor, a finite flow3. Prints the headline, each section's times, the
     train step with its stages, and each roofline row's ceiling beside the
     measured stage that holds it, each with the card's name and power
@@ -3985,7 +3971,7 @@ def phase_bench(dev) -> dict:
 
     st, tr = rec["stages_s"], rec["train_step"]
     print(f"bench: headline {json.dumps(line)}; {rec['headline_latency_s'] * 1e3:.2f} ms per "
-          f"map; launches per map kNN 3 masked-max 9 (tuned), flow3 finite; details device "
+          f"map; launches per map kNN 3 (tuned) masked-max 9, flow3 finite; details device "
           f"{rec['device']}; {card}", flush=True)
     print(f"bench: stages_s " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in st.items())
           + f"; {card}", flush=True)
@@ -4197,58 +4183,57 @@ def main(argv=None) -> int:
             "launches_per_bf16_train_step": per_bf16[name][0],
             "launches_per_bf16_val_batch": per_bf16[name][1],
             "launches_per_learning_flow_step": {
-                lab: r["launches"]["train"][name]["tuned"] for lab, r in per_learn.items()},
+                lab: r["launches"]["train"][name] for lab, r in per_learn.items()},
             "launches_per_learning_eval_step": {
-                lab: r["launches"]["eval"][name]["tuned"] for lab, r in per_learn.items()},
+                lab: r["launches"]["eval"][name] for lab, r in per_learn.items()},
             "launches_per_closed_loop_map": {
-                lab: r["loop"]["per_map"][name]["tuned"] for lab, r in per_learn.items()},
+                lab: r["loop"]["per_map"][name] for lab, r in per_learn.items()},
             "launches_per_banded_request": per_band[name]["launches"],
             "banded_request_flow_chunk_rows": PE_BAND_CR,
             "ms_per_banded_request": round(per_band[name]["ms"], 5),
             "ms_per_banded_request_source": per_band[name]["source"],
-            "variant": "tuned",
             "ms_per_request_envelope_phase": round(env["timing"][(name, 5)][0], 5),
-            "launches_per_knn8_request": {w: r[name]["tuned"]
-                                          for w, r in env["requests"].items()},
+            "launches_per_knn8_request": {w: r[name] for w, r in env["requests"].items()},
             "launches_per_banded_train_step": env["banded"]["launches"] if name == "window_knn"
             else 0,
             "banded_train_flow_chunk_rows": ENV_BAND_CR,
-            "launches_per_tanks_map": tanks["per_map"][name]["tuned"],
+            "launches_per_tanks_map": tanks["per_map"][name],
             **{f"{key}_{grid}": round(t[name][i], 5) for grid, t in tanks["kernels"].items()
                for i, key in enumerate(("ms_per_request", "plain_ms_per_request", "bound_ms"))},
             "ms_per_request_tanks_source": "+".join(sorted(
                 {t[name][3] for t in tanks["kernels"].values()})),
-            "launches_per_tanks_sweep_map": {tok: r["launches"][name]["tuned"]
+            "launches_per_tanks_sweep_map": {tok: r["launches"][name]
                                              for tok, r in tanks["sweep"].items()},
         })
-    # the general kernels: launches per KNN 8 request at the window that runs
-    # them (kNN: window 5; masked max: window 3, since the rule keeps window 5
-    # with G = 5 on the tuned kernel), and time, plain time and bound per
-    # such request at the paper-eval flow grids
-    for name, line, win in [("window_knn", "knn.py:40", 5), ("masked_window_max", "edge.py:73", 3)]:
-        ms, pms, bb, by, how = env["timing"][(f"{name}_general", win)]
-        rows.append({
-            "name": f"{name}_general", "route": "cuda",
-            "source": f"pointmvsnet_tpu_torch/csrc/{name}_general.cu",
-            "replaces": f"pointmvsnet_tpu/ops/pallas/{line}",
-            "launches": env["requests"][win][name]["general"],
-            "max_abs_err": env["err"][name],
-            "ms": round(ms, 5), "plain_ms": round(pms, 4), "bound_ms": round(bb, 5),
-            "bound_by": "bytes" if by == {"bytes"} else "operations",
-            "library_ms": None,
-            "variant": "general",
-            "work": f"one forward: flow1-3 grids, k={ENV_K}, window {win}, bf16, F=(32,32,64) "
-                    f"per flow",
-            "ms_source": "+".join(sorted(how)),
-            "launches_per": f"paper-eval request at MODEL.KNN {ENV_K}, KNN_WINDOW {win}",
-            "launches_per_knn8_request": {w: r[name]["general"]
-                                          for w, r in env["requests"].items()},
-            "launches_per_banded_train_step": 0,
-            "ms_per_request_window": {w: round(t[0], 5) for (n, w), t in env["timing"].items()
-                                      if n == f"{name}_general"},
-            "ms_forced_at_tuned_shape": round(env["timing"][(f"{name}_general_at_tuned", 5)][0],
-                                              5),
-        })
+    # the masked max at MODEL.KNN 8: time, plain time and bound per request at
+    # the paper-eval flow grids, windows 5 and 3
+    rows[1].update({f"{key}_per_knn8_request": {w: round(t[i], 5) for (n, w), t in
+                                                 env["timing"].items()
+                                                 if n == "masked_window_max_knn8"}
+                    for i, key in enumerate(("ms", "plain_ms", "bound_ms"))})
+    # the general kNN: launches per KNN 8 request, and time, plain time and
+    # bound per such request at the paper-eval flow grids
+    ms, pms, bb, by, how = env["timing"][("window_knn_general", 5)]
+    rows.append({
+        "name": "window_knn_general", "route": "cuda",
+        "source": "pointmvsnet_tpu_torch/csrc/window_knn_general.cu",
+        "replaces": "pointmvsnet_tpu/ops/pallas/knn.py:40",
+        "launches": env["requests"][5]["window_knn_general"],
+        "max_abs_err": env["err"]["window_knn"],
+        "ms": round(ms, 5), "plain_ms": round(pms, 4), "bound_ms": round(bb, 5),
+        "bound_by": "bytes" if by == {"bytes"} else "operations",
+        "library_ms": None,
+        "work": f"one forward: flow1-3 grids, k={ENV_K}, window 5, bf16, F=(32,32,64) per flow",
+        "ms_source": "+".join(sorted(how)),
+        "launches_per": f"paper-eval request at MODEL.KNN {ENV_K}, KNN_WINDOW 5",
+        "launches_per_knn8_request": {w: r["window_knn_general"]
+                                      for w, r in env["requests"].items()},
+        "launches_per_banded_train_step": 0,
+        "ms_per_request_window": {w: round(t[0], 5) for (n, w), t in env["timing"].items()
+                                  if n == "window_knn_general"},
+        "ms_forced_at_tuned_shape": round(env["timing"][("window_knn_general_at_tuned", 5)][0],
+                                          5),
+    })
     rows.append({
         "name": "point_fetch", "route": "cuda",
         "source": "pointmvsnet_tpu_torch/csrc/point_fetch.cu",

@@ -25,8 +25,9 @@ PointFlow's fetch (``ops/sampling.py::point_fetch``) and the coarse
 plane sweep (``ops/cost_volume.py::plane_sweep_volume``) each run as one
 CUDA kernel where their inputs are CUDA tensors and no gradient is needed:
 every eval forward on the card, and a training forward under
-``torch.no_grad``; the CPU and training under autograd take the
-compositions they are bit-equal to. The view-parallel sweep
+``torch.no_grad``; the CPU and training under autograd take the plain
+versions the kernels are bit-equal to (``point_fetch_plain``,
+``plane_sweep_plain``). The view-parallel sweep
 (``parallel/view_parallel.py``) keeps its own composition.
 
 Under a profiler (``utils/profiler.py::span``) the forward is a

@@ -38,10 +38,7 @@ SIGNATURES = {
     "window_knn_general": {
         "window_knn_general": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "masked_window_max": {
-        "masked_window_max": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "masked_window_max_general": {
-        "masked_window_max_general": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                      _P]},
+        "masked_window_max": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "window_gather": {"window_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "point_fetch": {
         "point_fetch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]},

@@ -10,9 +10,9 @@ depths broadcast over the pixels, bit for bit.
 The variance over the views takes a hand-written CUDA kernel,
 ``plane_sweep_cuda`` (``csrc/plane_sweep.cu``), where
 ``fetch_kernel_applies`` holds (CUDA inputs, no gradient needed): bit-equal
-on the card to the composition ``plane_sweep_plain`` and written in the
-features' dtype. Elsewhere (the CPU, training under autograd) it takes the
-composition itself, in f32."""
+on the card to the composition ``plane_sweep_plain``, which it takes
+elsewhere (the CPU, training under autograd). Both write the features'
+dtype."""
 
 from __future__ import annotations
 
@@ -26,12 +26,7 @@ from pointmvsnet_tpu_torch.ops.geometry import (
     pixel_grid,
     unproject_pixels,
 )
-from pointmvsnet_tpu_torch.ops.sampling import (
-    _project,
-    bilinear_sample,
-    fetch_features,
-    fetch_kernel_applies,
-)
+from pointmvsnet_tpu_torch.ops.sampling import _project, bilinear_sample, fetch_kernel_applies
 
 # launches of the sweep kernel (only ``plane_sweep_cuda`` increments it)
 launches = 0
@@ -51,9 +46,9 @@ def plane_sweep_volume(feats: torch.Tensor, cams: torch.Tensor,
 
     feats (B, V, h, w, C) with view 0 the reference; cams (B, V, 2, 4, 4)
     at feature resolution; depths (B, D) planes or (B, D, h, w) per pixel
-    → cost (B, D, h, w, C): through ``plane_sweep_cuda`` where
-    ``fetch_kernel_applies``, in the features' dtype; else the composition,
-    in float32, which autograd differentiates."""
+    → cost (B, D, h, w, C) in the features' dtype: through
+    ``plane_sweep_cuda`` where ``fetch_kernel_applies``; else
+    ``plane_sweep_plain``, which autograd differentiates."""
     b, v, h, w, c = feats.shape
     d = depths.shape[1]
     cams = cams.float()
@@ -61,13 +56,11 @@ def plane_sweep_volume(feats: torch.Tensor, cams: torch.Tensor,
     pts = unproject_pixels(grid[None, None], _depth_per_point(depths, h, w),
                            cam_extrinsics(cams)[:, 0, None],
                            cam_intrinsics(cams)[:, 0, None])   # (B, D, h·w, 3)
-    pts = pts.reshape(b, d * h * w, 3)
+    uv, z = _project(pts.reshape(b, d * h * w, 3), cams[:, 1:])
     if fetch_kernel_applies(feats, cams, depths):
-        uv, z = _project(pts, cams[:, 1:])
         return plane_sweep_cuda(feats.contiguous(), uv.contiguous(), z.contiguous(),
                                 depths.float().contiguous())
-    ref_f = _reference(feats, depths)
-    return _variance(ref_f, fetch_features(feats[:, 1:], pts, cams[:, 1:]), feats.shape)
+    return plane_sweep_plain(feats, uv, z, depths)
 
 
 def _reference(feats: torch.Tensor, depths: torch.Tensor) -> torch.Tensor:

@@ -4,11 +4,10 @@ twin ``masked_window_max_xla``).
 
 out[b, p, f] = max of z[b, nbr_s(p), f] over the window candidates s set
 in p's kNN selection mask. ``masked_window_max`` dispatches on the
-device: CUDA tensors go to a hand-written kernel, CPU tensors to
-``masked_window_max_plain``. The kernels take every window and level count
-the kNN produces and any F, in f32 and bf16: ``kernel_variant`` picks
-``csrc/masked_window_max.cu`` (tuned for window 5, G ≤ 5) or
-``csrc/masked_window_max_general.cu``.
+device: CUDA tensors go to the hand-written kernel
+``csrc/masked_window_max.cu``, CPU tensors to ``masked_window_max_plain``.
+The kernel takes every window and level count the kNN produces and any F,
+in f32 and bf16, with the tile and channel chunk ``staging_plan`` picks.
 Both fold with ``jnp.maximum``'s semantics: a NaN wins, +0 wins over −0,
 and equal values are bit-identical otherwise. The result then does not
 depend on the order the candidates are visited in, and the two agree bit
@@ -25,13 +24,11 @@ import torch.nn.functional as F
 from pointmvsnet_tpu_torch.ops import _cuda
 from pointmvsnet_tpu_torch.ops.knn import check_window
 
-# launches of the CUDA kernels, in all and by variant (only
-# ``masked_window_max_cuda`` increments them)
+# launches of the CUDA kernel (only ``masked_window_max_cuda`` increments it)
 launches = 0
-launches_by = {"tuned": 0, "general": 0}
 
 _NEG = torch.finfo(torch.float32).min / 2   # value where no candidate is set
-_TABLE_BYTES = 512           # the general kernel's static bit → row table
+_TABLE_BYTES = 512           # the kernel's static bit → row table
 _INT_OF_SIZE = {2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
@@ -71,33 +68,22 @@ def masked_window_max_plain(z: torch.Tensor, mask: torch.Tensor,
     return acc.reshape(b, p, f)
 
 
-def kernel_variant(g: int, window: int, f: int, dtype: torch.dtype, b: int = 1) -> str:
-    """The CUDA kernel for a (B, G·H·W, F) input of ``dtype`` at ``window``:
-    "tuned" (``csrc/masked_window_max.cu``) at window 5 and G ≤ 5 while its
-    grid of B · ⌈F·size/64⌉ channel chunks fits 65535 blocks, "general"
-    (``csrc/masked_window_max_general.cu``) at every other odd window with
-    G·win² ≤ 128 and any F. Raises outside that, with the kNN's message."""
-    check_window(g, window)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"z must be float32 or bfloat16, got {dtype}")
-    chunks = -(-f * (torch.finfo(dtype).bits // 8) // 64)     # 64-byte channel chunks
-    return "tuned" if window == 5 and g <= 5 and b * chunks <= 65535 else "general"
-
-
 class StagingPlan(NamedTuple):
     tile_rows: int           # TH: the block's tile is TH × 32 pixels at all G levels
     chunk_bytes: int         # the channels a block folds: 64, 32 or 16 bytes
 
 
 def staging_plan(g: int, window: int, f: int, dtype: torch.dtype) -> StagingPlan:
-    """The general kernel's tile and channel chunk for a (B, G·H·W, F) z of
+    """The kernel's tile and channel chunk for a (B, G·H·W, F) z of
     ``dtype`` at ``window``: the widest chunk of (64, 32, 16) bytes, none
     wider than F·size needs, for which some TH in (8, 4, 2, 1) fits the z
     rows with a halo of window // 2 pixels, the mask words and the bit
     table into a block's 227 KB (on the card a narrower chunk of a 64-byte
     row reads it at a fraction of the memory's rate, PERF.md §6). Of its
     tiles: two blocks per SM first, then the fewest bytes staged per pixel,
-    then the taller. Raises where none fits."""
+    then the taller: TH 4 and 64-byte chunks at the model's G 5, window 5,
+    F 32 and 64. Raises, with the kNN's message, outside odd windows with
+    G·win² ≤ 128, for a dtype other than f32 or bf16, and where none fits."""
     check_window(g, window)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"z must be float32 or bfloat16, got {dtype}")
@@ -118,55 +104,40 @@ def staging_plan(g: int, window: int, f: int, dtype: torch.dtype) -> StagingPlan
 
 
 def check_args(z: torch.Tensor, mask: torch.Tensor, grid_shape: Tuple[int, int, int],
-               window: int) -> str:
+               window: int) -> StagingPlan:
     """``masked_window_max_cuda``'s checks of its arguments, on any device
-    and without a launch → its ``kernel_variant``."""
+    and without a launch → its ``staging_plan``."""
     g, h, w = grid_shape
     if z.dim() != 3 or z.shape[1] != g * h * w:
         raise ValueError(f"z {tuple(z.shape)} does not match grid {grid_shape}")
-    variant = kernel_variant(g, window, z.shape[2], z.dtype, z.shape[0])
+    plan = staging_plan(g, window, z.shape[2], z.dtype)
     if not z.is_contiguous():
         raise ValueError("z must be contiguous")
     nw = -(-(g * window * window) // 32)
     if (mask.dtype != torch.int32 or not mask.is_contiguous()
             or mask.shape != (z.shape[0], nw, g, h, w)):
         raise ValueError(f"mask must be contiguous int32 {(z.shape[0], nw, g, h, w)}")
-    return variant
+    return plan
 
 
 def masked_window_max_cuda(z: torch.Tensor, mask: torch.Tensor,
                            grid_shape: Tuple[int, int, int],
-                           window: int = 5, variant: str = "") -> torch.Tensor:
-    """The CUDA kernels: same contract as ``masked_window_max_plain`` for
-    every shape ``check_args`` takes. ``variant`` "general" runs the
-    general kernel at the tuned kernel's shapes too (to compare the two);
-    by default ``kernel_variant`` picks."""
+                           window: int = 5) -> torch.Tensor:
+    """The CUDA kernel: same contract as ``masked_window_max_plain`` for
+    every shape ``check_args`` takes."""
     global launches
     g, h, w = grid_shape
     if not (z.is_cuda and mask.is_cuda):
         raise ValueError("masked_window_max_cuda takes CUDA tensors")
-    chosen = check_args(z, mask, grid_shape, window)
-    variant = variant or chosen
-    if variant not in ("tuned", "general") or (variant == "tuned" and chosen != "tuned"):
-        raise ValueError(f"variant {variant!r} does not take window={window}, G={g}, "
-                         f"{tuple(z.shape)}")
+    plan = check_args(z, mask, grid_shape, window)
     out = torch.empty_like(z)
-    is_bf16, stream = int(z.dtype == torch.bfloat16), _cuda.stream_of(z)
-    if variant == "tuned":
-        lib = _cuda.load("masked_window_max")
-        err = lib.masked_window_max(z.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                                    z.shape[0], g, h, w, z.shape[2], is_bf16,
-                                    z.device.index, stream)
-    else:
-        plan = staging_plan(g, window, z.shape[2], z.dtype)
-        lib = _cuda.load("masked_window_max_general")
-        err = lib.masked_window_max_general(z.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                                            z.shape[0], g, h, w, z.shape[2], window,
-                                            plan.tile_rows, plan.chunk_bytes, is_bf16,
-                                            z.device.index, stream)
-    _cuda.check(lib, err, f"masked_window_max ({variant})")
+    lib = _cuda.load("masked_window_max")
+    err = lib.masked_window_max(z.data_ptr(), mask.data_ptr(), out.data_ptr(), z.shape[0], g,
+                                h, w, z.shape[2], window, plan.tile_rows, plan.chunk_bytes,
+                                int(z.dtype == torch.bfloat16), z.device.index,
+                                _cuda.stream_of(z))
+    _cuda.check(lib, err, "masked_window_max")
     launches += 1
-    launches_by[variant] += 1
     return out
 
 

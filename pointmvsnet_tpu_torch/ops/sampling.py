@@ -13,8 +13,8 @@ of every hypothesis point, reduced with the reference view's samples to
 the variance over the views), takes a hand-written CUDA kernel,
 ``point_fetch_cuda`` (``csrc/point_fetch.cu``), where
 ``fetch_kernel_applies`` holds: bit-equal on the card to the composition
-``point_fetch_plain`` and written in the levels' dtype. Elsewhere it takes
-the composition itself.
+``point_fetch_plain``, which it takes elsewhere (the CPU, training under
+autograd). Both write the levels' dtype.
 """
 
 from __future__ import annotations
@@ -181,7 +181,7 @@ def fetch_kernel_applies(*tensors: torch.Tensor) -> bool:
     """Whether PointFlow's fetch over ``tensors`` (its inputs) takes
     ``point_fetch_cuda``: every one a CUDA tensor and no gradient needed
     (autograd off, or none requires one). The CPU and training under
-    autograd take the composition, which autograd differentiates."""
+    autograd take ``point_fetch_plain``, which autograd differentiates."""
     return (all(t.is_cuda for t in tensors)
             and not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)))
 
@@ -286,13 +286,12 @@ def point_fetch(levels: Sequence[torch.Tensor], points: torch.Tensor,
     views ``src_cams`` (B, V−1, 2, 4, 4) at level-0 resolution, sampled in
     the source views of ``levels`` [(B, V, h_l, w_l, C_l)] and reduced with
     the reference view's ``ref_samples`` [(B, n, C_l)] to the variance over
-    the V views (``view_variance``) → (B, G·n, ΣC_l). Through
-    ``point_fetch_cuda`` where ``fetch_kernel_applies``, in the levels'
-    dtype; else the composition, in f32, which autograd differentiates."""
+    the V views (``view_variance``) → (B, G·n, ΣC_l) in the levels' dtype.
+    Through ``point_fetch_cuda`` where ``fetch_kernel_applies``; else
+    ``point_fetch_plain``, which autograd differentiates."""
+    uv, z = _project(points, src_cams)
     if fetch_kernel_applies(points, src_cams, *levels):
-        uv, z = _project(points, src_cams)
         return point_fetch_cuda([f.contiguous() for f in levels], uv.contiguous(),
                                 z.contiguous(), [r.contiguous() for r in ref_samples],
                                 hyp_depth.contiguous())
-    s1, s2 = fetch_features_perlevel([f[:, 1:] for f in levels], points, src_cams)
-    return view_variance(ref_samples, hyp_depth, s1, s2, levels[0].shape[1])
+    return point_fetch_plain(levels, uv, z, ref_samples, hyp_depth)

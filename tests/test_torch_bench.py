@@ -411,8 +411,8 @@ def test_roofline_peaks_are_the_cards():
 
 def test_roofline_taps_equal_the_rows_the_port_gathers(monkeypatch):
     """One bf16 forward at the tiny size: the rows ``index_select`` gathers
-    inside the plane sweep's fetch and inside each flow iteration's
-    per-level fetch, the width and type of the rows gathered, and the
+    inside the plane sweep's plain version and inside each flow iteration's
+    fetch (``point_fetch_plain``, its per-level samples), the width and type of the rows gathered, and the
     operations of the reference view's resample in flow3, against
     ``gather_taps`` / ``ref_resample_flops`` and the table's row widths."""
     stage = [None]
@@ -435,21 +435,21 @@ def test_roofline_taps_equal_the_rows_the_port_gathers(monkeypatch):
                 stage[0] = None
         return call
 
-    def fetch_perlevel(*args, **kwargs):
+    def fetch_plain(*args, **kwargs):
         flow_iter[0] += 1
-        return perlevel(*args, **kwargs)
+        return plain(*args, **kwargs)
 
     def regular_grid_sample(feat, sx, sy, out_h, out_w, y_offset=0):
         b, h, w, c = feat.shape
         rgs.append((flow_iter[0] + 1, 2 * b * c * out_w * h * (w + out_h)))
         return real_rgs(feat, sx, sy, out_h, out_w, y_offset)
 
-    perlevel = in_stage(lambda: f"flow{flow_iter[0]}", tsampling.fetch_features_perlevel)
+    plain = in_stage(lambda: f"flow{flow_iter[0]}", tsampling.point_fetch_plain)
     real_rgs = tpointmvsnet.regular_grid_sample
     monkeypatch.setattr(torch.Tensor, "index_select", index_select)
-    monkeypatch.setattr(tcost_volume, "fetch_features",
-                        in_stage(lambda: "coarse", tcost_volume.fetch_features))
-    monkeypatch.setattr(tsampling, "fetch_features_perlevel", fetch_perlevel)
+    monkeypatch.setattr(tcost_volume, "plane_sweep_plain",
+                        in_stage(lambda: "coarse", tcost_volume.plane_sweep_plain))
+    monkeypatch.setattr(tsampling, "point_fetch_plain", fetch_plain)
     monkeypatch.setattr(tpointmvsnet, "regular_grid_sample", regular_grid_sample)
     with tiny_bench(dtype=None):
         cfg, model, images, cams, kwargs = bench.headline("cpu", 1, V, H, W, D)

@@ -16,8 +16,8 @@ from pointmvsnet_tpu.ops.knn import window_knn as jwindow_knn
 from pointmvsnet_tpu.ops.pallas.edge import masked_window_max as pallas_mwm
 from pointmvsnet_tpu.ops.pallas.edge import masked_window_max_xla
 from pointmvsnet_tpu_torch.models.edge_conv import EdgeConv
+from pointmvsnet_tpu_torch.ops.edge import StagingPlan
 from pointmvsnet_tpu_torch.ops.edge import check_args as edge_check_args
-from pointmvsnet_tpu_torch.ops.edge import kernel_variant as edge_kernel_variant
 from pointmvsnet_tpu_torch.ops.edge import masked_window_max, masked_window_max_cuda
 from pointmvsnet_tpu_torch.ops.edge import staging_plan
 from pointmvsnet_tpu_torch.ops.knn import gather_knn
@@ -263,36 +263,27 @@ def test_envelope_plain_matches_pallas_and_xla(envelope_graph, f, dtype):
             pallas_mwm(jz, jnp.asarray(mask), grid, win, interpret=True)
 
 
-def test_edge_kernel_variant():
-    """Tuned at window 5 and G ≤ 5 while its grid of channel chunks fits
-    65535 blocks (any F, f32 and bf16); general at every other odd window
-    with G·win² ≤ 128, and past the tuned kernel's grid."""
-    for dt in (torch.float32, torch.bfloat16):
-        for g in range(1, 6):
-            for f in (1, 10, 32, 64, 128, 160, 1000):
-                assert edge_kernel_variant(g, 5, f, dt) == "tuned"
-        assert edge_kernel_variant(5, 5, 128, dt, b=65535 // (128 * (4 if dt == torch.float32
-                                                                      else 2) // 64)) == "tuned"
-        assert edge_kernel_variant(5, 5, 160, dt, b=65535) == "general"
-        for win in range(1, 12, 2):
-            for g in range(1, 128 // (win * win) + 1):
-                if win != 5:
-                    assert edge_kernel_variant(g, win, 10, dt) == "general"
-        assert edge_kernel_variant(14, 3, 64, dt) == edge_kernel_variant(128, 1, 7, dt) == "general"
-
-
 @pytest.mark.parametrize("g,win,dtype,match", [
     (5, 4, torch.float32, "window must be odd"), (6, 5, torch.float32, "128 candidate"),
     (15, 3, torch.bfloat16, "128 candidate"), (5, 5, torch.float16, "float32 or bfloat16")])
 def test_edge_kernel_variant_raises(g, win, dtype, match):
+    """The kernel's launch plan and argument checks reject an even window,
+    more than 128 candidates and a dtype other than f32 or bf16, with the
+    kNN's messages."""
     with pytest.raises(ValueError, match=match):
-        edge_kernel_variant(g, win, 8, dtype)
+        staging_plan(g, win, 8, dtype)
+    nw = -(-(g * win * win) // 32)
+    with pytest.raises(ValueError, match=match):
+        edge_check_args(torch.zeros(1, g * 6, 8, dtype=dtype),
+                        torch.zeros(1, nw, g, 2, 3, dtype=torch.int32), (g, 2, 3), win)
 
 
 def test_edge_check_args_accept_the_envelope():
     """The CUDA wrapper's argument checks (no launch) accept every window,
-    G and F inside the envelope in f32 and bf16, and reject a mask of the
-    wrong shape or type and a non-contiguous z."""
+    G and F inside the envelope in f32 and bf16, any B (past the 65535
+    blocks of a grid's third dimension too), returning the kernel's staging
+    plan, and reject a mask of the wrong shape or type and a non-contiguous
+    z."""
     for win in range(1, 12, 2):
         for g in range(1, 128 // (win * win) + 1):
             nw = -(-(g * win * win) // 32)
@@ -300,8 +291,12 @@ def test_edge_check_args_accept_the_envelope():
             for f in (1, 10, 160):
                 for dt in (torch.float32, torch.bfloat16):
                     z = torch.zeros(2, g * 6, f, dtype=dt)
-                    assert edge_check_args(z, mask, (g, 2, 3), win) == edge_kernel_variant(
-                        g, win, f, dt, 2)
+                    plan = edge_check_args(z, mask, (g, 2, 3), win)
+                    assert isinstance(plan, StagingPlan) and plan == staging_plan(g, win, f, dt)
+    b = 65536
+    assert edge_check_args(torch.zeros(b, 5, 32, dtype=torch.bfloat16),
+                           torch.zeros(b, 4, 5, 1, 1, dtype=torch.int32),
+                           (5, 1, 1), 5) == staging_plan(5, 5, 32, torch.bfloat16)
     z = torch.zeros(1, 7 * 6, 20)
     mask = torch.zeros(1, 2, 7, 2, 3, dtype=torch.int32)
     for bad_z, bad_mask in ((z[:, :, ::2], mask), (z, mask.long()), (z, mask[:, :1])):
@@ -311,9 +306,20 @@ def test_edge_check_args_accept_the_envelope():
         masked_window_max_cuda(z, mask, (7, 2, 3), 3)
 
 
+@pytest.mark.parametrize("f", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staging_plan_at_the_cells_shapes(f, dtype):
+    """At the model's EdgeConv shapes (G 5, window 5, F 32 and 64) the
+    kernel stages 4×32 tiles in 64-byte chunks, two blocks to an SM."""
+    plan = staging_plan(5, 5, f, dtype)
+    assert plan == StagingPlan(tile_rows=4, chunk_bytes=64)
+    staged = 5 * (4 + 4) * (32 + 4) * 64 + 1 * 5 * 4 * 32 * 4 + 512
+    assert 2 * (staged + 1024) <= 233_472
+
+
 @pytest.mark.parametrize("win", [1, 3, 5, 7, 9, 11])
 def test_staging_plan_fits_the_envelope(win):
-    """The general masked max has a staging plan for every G with
+    """The masked max has a staging plan for every G with
     G·win² ≤ 128, F 10/32/64/160, f32 and bf16: its rows with halo, mask
     words and bit table fit a block's 232,448 bytes, TH ≥ 1, its chunks
     cover F and none is wider than F needs, no wider chunk fits with any

@@ -92,10 +92,11 @@ def kernel_args(feats, cams, depths):
 @pytest.mark.parametrize("per_pixel", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_the_cpu_takes_the_composition(dtype, per_pixel):
-    """On the CPU ``plane_sweep_volume`` is the composition it was, f32."""
+    """On the CPU ``plane_sweep_volume`` is the composition it was, cast to
+    the features' dtype (``plane_sweep_plain``)."""
     feats, cams, depths = sweep_inputs(dtype=dtype, per_pixel=per_pixel)
     got = plane_sweep_volume(feats, cams, depths)
-    assert got.dtype == torch.float32 and same_bits(got, composition(feats, cams, depths))
+    assert got.dtype == dtype and same_bits(got, composition(feats, cams, depths).to(dtype))
 
 
 @pytest.mark.parametrize("per_pixel", [False, True])

@@ -66,8 +66,8 @@ def test_plain_version_is_the_composition(dtype):
 def test_point_fetch_takes_the_kernel_where_the_rule_holds(monkeypatch, kernel):
     """``point_fetch`` hands the projection to ``point_fetch_cuda`` where
     ``fetch_kernel_applies`` holds (here ``point_fetch_plain`` stands in for
-    it: the levels' dtype), else returns the composition in f32; the two
-    agree bit for bit once cast."""
+    it), else to ``point_fetch_plain``: the composition's bits in the
+    levels' dtype either way."""
     levels, _, _, refs, hyp = fetch_args()
     pts, src_cams = scene_points()
     calls = []
@@ -82,8 +82,7 @@ def test_point_fetch_takes_the_kernel_where_the_rule_holds(monkeypatch, kernel):
     s1, s2 = sampling.fetch_features_perlevel([f[:, 1:] for f in levels], pts, src_cams)
     want = sampling.view_variance(refs, hyp, s1, s2, V)
     assert len(calls) == int(kernel)
-    assert got.dtype == (torch.bfloat16 if kernel else torch.float32)
-    assert same_bits(got, want.to(got.dtype))
+    assert got.dtype == torch.bfloat16 and same_bits(got, want.to(got.dtype))
 
 
 @pytest.mark.parametrize("widths,ch", [((8, 16, 32), 8), ((4, 8, 16), 4), ((2, 4, 8), 2),
